@@ -162,30 +162,6 @@ def test_streaming_measure_matches_whole_video(workspace):
                                rtol=1e-5, atol=1e-4)
 
 
-def test_streaming_fused_matches_whole_video(tmp_path):
-    """Chunked fused-kernel launches with carried tracking state produce
-    exactly the whole-clip fused pass's signal (the explicit-carry kernel's
-    design contract)."""
-    import jax.numpy as jnp
-    from vhr_tpu.ops.pallas_fused import fused_detect_roi_pallas
-    from vhr_tpu.pipeline import offline
-
-    clip = synthesize(SynthSpec(duration_s=6.0, bpm=75.0, height=48,
-                                width=128, noise_std=0.5))
-    path = tmp_path / "fused.mp4"
-    vio.write_video(clip.frames, str(path), clip.fps)
-
-    frames, fps = vio.read_video(str(path))     # same decode both paths
-    whole = fused_detect_roi_pallas(jnp.asarray(frames), detect_row_pool=8,
-                                    interpret=True)
-    bgr, valid, fps2 = offline.extract_signals_streaming(
-        str(path), chunk_frames=40, use_fused=True, detect_row_pool=8,
-        prefer_native=False)
-    np.testing.assert_array_equal(valid, np.asarray(whole.roi_valid))
-    np.testing.assert_allclose(bgr, np.asarray(whole.means),
-                               rtol=1e-6, atol=1e-5)
-
-
 def test_accuracy_metric_computation(tmp_path):
     from vhr_tpu.analysis.metrics import accuracy
 

@@ -85,19 +85,3 @@ def test_magnified_pulse_recovers_bpm():
                                              BAND_ANALYSIS)
     assert abs(float(est.bpm) - 90.0) <= 4.0
 
-
-def test_magnified_pulse_pallas_path_matches_xla():
-    clip = synthesize(SynthSpec(duration_s=8.0, bpm=90.0, height=64,
-                                width=128, pulse_amplitude=1.5))
-    import jax.numpy as jnp
-    a = np.asarray(evm.magnified_pulse(jnp.asarray(clip.frames), clip.fps,
-                                       HRBand(0.7, 3.0), levels=2))
-    # The pallas front-end lowers through interpret mode on CPU; here we
-    # verify the routing path numerically via the interpret fallback.
-    from vhr_tpu.ops.pallas_evm import yiq_pyrdown_pallas
-    low = jnp.moveaxis(yiq_pyrdown_pallas(jnp.asarray(clip.frames),
-                                          interpret=True), 1, -1)
-    low = evm.gaussian_pyramid_level(low, 1)
-    bp = evm.temporal_ideal_bandpass(low, clip.fps, HRBand(0.7, 3.0))
-    b = np.asarray(jnp.mean(bp, axis=(1, 2)))
-    np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-6)

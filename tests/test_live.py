@@ -35,35 +35,6 @@ def test_live_stream_recovers_bpm(clip):
     assert np.median(err) <= 7.0  # welch bin resolution ~6.7 BPM
 
 
-def test_live_fused_kernel_recovers_bpm():
-    """use_fused routes detection + ROI through the single-pass Pallas
-    kernel with the tracking carry living in LiveState; the one-frame box
-    lag stays inside holdover tolerance and the BPM still recovers."""
-    v = synthesize(SynthSpec(duration_s=25.0, bpm=72.0, height=48,
-                             width=128, fps=30.0, noise_std=0.5))
-    cfg = live.LiveConfig(fps=v.fps, use_fused=True, detect_row_pool=8,
-                          gate_margin=0.25)
-
-    @jax.jit
-    def run(state, frames):
-        def body(s, f):
-            s2, o = live.step(s, f, cfg)
-            return s2, (o.bpm, o.bpm_valid, o.face_valid)
-        return jax.lax.scan(body, state, frames)
-
-    st, (bpms, bvalid, fvalid) = run(live.init_state(cfg),
-                                     jnp.asarray(v.frames))
-    fvalid = np.asarray(fvalid)
-    assert not fvalid[0]          # no tracked box yet at the first frame
-    assert fvalid[1:].all()
-    bvalid = np.asarray(bvalid)
-    assert bvalid[285:].all()
-    # Median over the settled region (the causal filter's startup transient
-    # decays over the first ~10 s, exactly as in the reference).
-    err = np.abs(np.asarray(bpms)[400:] - 72.0)
-    assert np.median(err) <= 7.0
-
-
 def test_live_filter_matches_scipy_streaming(clip):
     """green_filtered must equal scipy sosfilt with carried zi on the same
     raw greens (rppg_LIVESTREAM.py:245-251 semantics)."""
@@ -224,13 +195,6 @@ def test_live_step_learned_detector():
         valid.append(bool(out.face_valid))
     np.testing.assert_array_equal(np.stack(boxes), np.asarray(track.box))
     np.testing.assert_array_equal(np.asarray(valid), np.asarray(track.valid))
-
-
-def test_live_fused_rejects_detector():
-    from vhr_tpu.models.landmarker import load_default_detector
-    with pytest.raises(ValueError, match="in-kernel skin detector"):
-        live.make_step(live.LiveConfig(use_fused=True),
-                       detector=load_default_detector())
 
 
 def test_live_pipeline_matches_sequential(clip):

@@ -39,31 +39,6 @@ def test_multistream_sharded_matches_single(devices):
         assert err.mean() <= 8.0, f"stream {i}: {err.mean()}"
 
 
-def test_multistream_fused_kernel_sharded(devices):
-    """The fused-kernel shard body (seq_len stream concatenation) recovers
-    each stream's BPM independently — faces sit at stream-specific positions
-    so any tracking leak across a stream boundary would misplace the ROI."""
-    m = vmesh.stream_mesh(devices)
-    clips = [synthesize(SynthSpec(duration_s=12.0, bpm=60.0 + 5 * i,
-                                  height=48, width=128, seed=i,
-                                  face_center=(0.3 + 0.05 * i, 0.45)))
-             for i in range(8)]
-    frames = jnp.asarray(np.stack([c.frames for c in clips]))
-    fps = clips[0].fps
-    cfg = PipelineConfig(window_seconds=8.0, acquisition_seconds=4.0)
-    frames = vmesh.shard(frames, m, "stream")
-    res = streams.multistream_green_bpm(frames, fps, m, cfg,
-                                        use_fused=True, detect_row_pool=8)
-    bpm = np.asarray(res.bpm)
-    valid = np.asarray(res.valid)
-    W = cfg.window_len(fps)
-    assert not valid[:, 0].any()       # stream starts carry no box
-    for i in range(8):
-        assert valid[i, W:].all()
-        err = np.abs(bpm[i, W:] - (60.0 + 5 * i))
-        assert err.mean() <= 8.0, f"stream {i}: {err.mean()}"
-
-
 def test_halo_sosfiltfilt_matches_global(devices):
     m = vmesh.make_mesh(("time",), devices=devices)
     sos = design.butter_bandpass_sos(2, 0.7 / 15.0, 2.0 / 15.0)

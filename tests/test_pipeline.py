@@ -170,26 +170,6 @@ def test_rolling_bpm_welch_estimator(clip):
     assert float(np.abs(bpm[W:] - 72.0).mean()) <= 4.0
 
 
-def test_extract_signals_fused_wrapper():
-    """use_pallas=True routes through the fused kernel (interpret on CPU) and
-    feeds the same downstream BPM stage."""
-    v = synthesize(SynthSpec(duration_s=40.0, bpm=72.0, noise_std=1.0,
-                             height=96, width=128))
-    frames = jnp.asarray(v.frames)
-    trace = offline.extract_signals(frames, use_pallas=True)
-    assert trace.bgr.shape == (frames.shape[0], 3)
-    assert bool(np.asarray(trace.valid)[1:].all())   # one-frame tracking lag
-    cfg = PipelineConfig(window_seconds=10.0, acquisition_seconds=5.0)
-    ts, bpm, valid = offline.measure_green_avg(frames, v.fps, cfg,
-                                               use_pallas=True)
-    steady = slice(cfg.window_len(v.fps), None)
-    assert valid[steady].all()
-    assert float(np.abs(bpm[steady] - 72.0).mean()) <= 4.0
-    with pytest.raises(ValueError):
-        offline.extract_signals(frames, detector=detect_faces,
-                                use_pallas=True)
-
-
 def test_learned_detector_params_are_traced(clip):
     """make_detector returns a jax.tree_util.Partial whose weights enter the
     jitted pipeline as traced args, not baked literal constants (ADVICE r1)."""
@@ -260,12 +240,3 @@ def test_roi_site_forehead_pipeline():
     assert ok[W:].all()
     assert abs(float(np.median(bpm[W:])) - 81.0) <= 3.5
 
-
-def test_roi_site_fused_guard():
-    import pytest as _pytest
-    from vhr_tpu.utils.synth import SynthSpec, synthesize
-    clip = synthesize(SynthSpec(duration_s=1.0, height=48, width=128))
-    with _pytest.raises(ValueError, match="cheek ROI geometry"):
-        offline.extract_signals(jnp.asarray(clip.frames),
-                                PipelineConfig(roi_site="forehead"),
-                                use_pallas=True)

@@ -1,4 +1,4 @@
-"""Tests: ROI geometry, holdover semantics, masked reductions, Pallas kernel."""
+"""Tests: ROI geometry, holdover semantics, masked reductions, ROI kernel."""
 
 import numpy as np
 import pytest
@@ -7,8 +7,7 @@ import jax.numpy as jnp
 from vhr_tpu.config import ROIConfig
 from vhr_tpu.ops import reduce as vreduce
 from vhr_tpu.ops import roi as vroi
-from vhr_tpu.ops.pallas_roi import (roi_channel_means_pallas,
-                                    roi_channel_means_pallas_batched)
+from vhr_tpu.ops.pallas_roi import roi_channel_means_pallas
 
 RNG = np.random.default_rng(11)
 
@@ -127,46 +126,105 @@ def test_roi_channel_means_empty_roi():
     assert np.all(np.asarray(means) == 0)
 
 
-@pytest.mark.parametrize("shape", [(4, 40, 56), (3, 130, 96)])
-def test_pallas_roi_means_matches_xla(shape):
+# --- the Triton-route ROI kernel (interpret mode on the CPU) ---------------
+
+def _boxes(kind, T, H, W):
+    """Per-frame ROI tables exercising one edge case each."""
+    if kind == "random":
+        return _random_rois(T, H, W)
+    if kind == "full":
+        return np.tile(np.array([[0, 0, W, H]], np.int32), (T, 1))
+    if kind == "empty":                      # zero area, invalid (all-zero)
+        r = _random_rois(T, H, W)
+        r[::2] = 0
+        r[1::2, 2] = r[1::2, 0]
+        return r
+    if kind == "degenerate":                 # one row / one column
+        r = _random_rois(T, H, W)
+        r[:, 3] = r[:, 1] + 1
+        r[1::2, 2] = r[1::2, 0] + 1
+        return r
+    if kind == "border":                     # spills past every frame edge
+        r = _random_rois(T, H, W)
+        r[:, 0] -= W // 2
+        r[:, 1] -= H // 2
+        r[1::2, 2] += W
+        r[1::2, 3] += H
+        return r
+    raise ValueError(kind)
+
+
+# (T, H, W): small; taller than one row block; W*3 not a power of two and
+# wider than one 512-lane chunk; a single ragged frame.
+_KERNEL_SHAPES = [(4, 40, 56), (3, 130, 96), (5, 37, 201), (1, 9, 600)]
+
+
+@pytest.mark.parametrize("shape", _KERNEL_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "full", "empty", "degenerate",
+                                  "border"])
+def test_pallas_roi_means_matches_xla(shape, kind):
+    """The kernel (interpret mode) equals XLA's masked reduction and float64
+    numpy, counts included: the contract is sum over the in-frame part of
+    the box divided by the (unclipped) box area."""
     T, H, W = shape
     frames = RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8)
-    rois = _random_rois(T, H, W)
-    m_ref, c_ref = vreduce.roi_channel_means(jnp.asarray(frames),
-                                             jnp.asarray(rois))
+    rois = _boxes(kind, T, H, W)
     m, c = roi_channel_means_pallas(jnp.asarray(frames), jnp.asarray(rois),
-                                    row_block=32, interpret=True)
-    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(c), np.asarray(c_ref))
-
-
-@pytest.mark.parametrize("shape,batch", [((21, 48, 64), 8),
-                                          ((16, 130, 96), 4)])
-def test_pallas_roi_means_batched_matches_xla(shape, batch):
-    """Batched slab-DMA kernel: parity incl. ragged tail, invalid and
-    degenerate boxes, and the pre-flattened (T, H, W*C) input layout."""
-    T, H, W = shape
-    frames = RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8)
-    rois = _random_rois(T, H, W)
-    rois[2] = 0                       # invalid frame
-    rois[5] = [7, 11, 13, 11]         # degenerate y-span
+                                    interpret=True)
     m_ref, c_ref = vreduce.roi_channel_means(jnp.asarray(frames),
                                              jnp.asarray(rois))
-    m, c = roi_channel_means_pallas_batched(
-        jnp.asarray(frames), jnp.asarray(rois), batch=batch, row_block=16,
-        interpret=True)
     np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref),
                                rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(c), np.asarray(c_ref))
+    np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
+    for t in range(T):
+        x1, y1, x2, y2 = rois[t]
+        patch = frames[t, max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)]
+        area = max(y2 - y1, 0) * max(x2 - x1, 0)
+        ref = (patch.reshape(-1, 3).astype(np.float64).sum(0)
+               / max(area, 1))
+        np.testing.assert_allclose(np.asarray(m)[t], ref, rtol=1e-5,
+                                   atol=1e-4)
 
+
+def test_pallas_roi_means_flat_layout_and_split():
+    """Pre-flattened ``(T, H, W*C)`` input gives the same answer as 4-D,
+    and operands in the 32-bit-offset window split into frame ranges."""
+    from vhr_tpu.ops import pallas_roi
+
+    T, H, W = 7, 20, 30
+    frames = RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8)
+    rois = _random_rois(T, H, W)
+    m4, c4 = roi_channel_means_pallas(jnp.asarray(frames), jnp.asarray(rois),
+                                      interpret=True)
     flat = jnp.asarray(frames.reshape(T, H, W * 3))
-    m2, c2 = roi_channel_means_pallas_batched(flat, jnp.asarray(rois),
-                                              batch=batch, row_block=16,
-                                              interpret=True, channels=3)
-    np.testing.assert_allclose(np.asarray(m2), np.asarray(m),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(c2), np.asarray(c))
+    m3, c3 = roi_channel_means_pallas(flat, jnp.asarray(rois), channels=3,
+                                      interpret=True)
+    np.testing.assert_array_equal(np.asarray(m3), np.asarray(m4))
+    old = pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES
+    try:   # pretend 12,600 bytes is inside the window: 3 frames per part
+        pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES = 6000, 20000
+        ms, cs = roi_channel_means_pallas(flat, jnp.asarray(rois),
+                                          interpret=True)
+    finally:
+        pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES = old
+    np.testing.assert_array_equal(np.asarray(ms), np.asarray(m4))
+    np.testing.assert_array_equal(np.asarray(cs), np.asarray(c4))
+
+
+@pytest.mark.gpu
+def test_pallas_roi_kernel_compiled_on_gpu(gpu_backend):
+    """The kernel compiled for the card (no interpreter) vs XLA's masked
+    reduction on 1080p frames."""
+    import jax
+
+    T, H, W = 8, 1080, 1920
+    frames = jax.device_put(
+        RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8), gpu_backend)
+    rois = jax.device_put(_boxes("border", T, H, W), gpu_backend)
+    m, c = roi_channel_means_pallas(frames, rois)
+    m_ref, c_ref = vreduce.roi_channel_means(frames, rois)
+    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref), atol=1e-3)
+    np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
 
 
 # --- bpp.py statistics -------------------------------------------------------

@@ -140,9 +140,10 @@ def test_pool_slot_exhaustion_and_geometry():
     srv.attach()
     with pytest.raises(RuntimeError, match="busy"):
         srv.attach()
-    # use_fused is accepted since round 4 (slot-batched fused kernel);
-    # invalid fused configs are covered in test_pool_fused_rejects_bad_config.
-    serving.BpmServer(live.LiveConfig(use_fused=True), n_slots=2)
+    # One frame geometry per pool: a second shape is refused.
+    srv.tick({0: np.zeros((16, 24, 3), np.uint8)})
+    with pytest.raises(ValueError, match="geometry"):
+        srv.tick({0: np.zeros((16, 32, 3), np.uint8)})
 
 
 def test_pool_i420_transfer_matches_bgr(clip):
@@ -726,80 +727,6 @@ def test_pool_projection_method_matches_single(clip, clip2):
             == [bool(o.bpm_valid) for o in ref_a])
     assert bool(outs_a[-1].bpm_valid)
     assert abs(float(outs_a[-1].bpm) - 84.0) <= 8.0
-
-
-def test_pool_fused_matches_single_fused():
-    """use_fused pool tick (ops.pallas_fused.fused_detect_roi_slots — ONE
-    streaming HBM read per tick for all S slots) must reproduce S
-    independent single-stream fused live steps exactly: same in-kernel
-    detection, holdover carry, cadence-on-own-frame-counter, DSP."""
-    va = synthesize(SynthSpec(duration_s=4.0, bpm=84.0, height=48,
-                              width=128, fps=10.0, noise_std=0.5))
-    vb = synthesize(SynthSpec(duration_s=4.0, bpm=66.0, height=48,
-                              width=128, fps=10.0, noise_std=0.5, seed=7))
-    cfg = live.LiveConfig(fps=va.fps, use_fused=True, detect_every=3,
-                          ring_len=30)
-    srv = serving.BpmServer(cfg, n_slots=3, donate=False)
-    a, b = srv.attach(), srv.attach()
-    outs_a, outs_b = [], []
-    for fa, fb in zip(va.frames, vb.frames):
-        outs = srv.tick({a: fa, b: fb})
-        outs_a.append(outs[a])
-        outs_b.append(outs[b])
-    ref_a = _single_trace(cfg, va.frames)
-    ref_b = _single_trace(cfg, vb.frames)
-    for got, ref in ((outs_a, ref_a), (outs_b, ref_b)):
-        np.testing.assert_allclose(
-            np.array([float(o.green_raw) for o in got]),
-            np.array([float(o.green_raw) for o in ref]), rtol=0, atol=1e-5)
-        np.testing.assert_allclose(
-            np.array([float(o.bpm) for o in got]),
-            np.array([float(o.bpm) for o in ref]), rtol=0, atol=1e-4)
-        assert ([bool(o.face_valid) for o in got]
-                == [bool(o.face_valid) for o in ref])
-        np.testing.assert_array_equal(
-            np.array([np.asarray(o.box) for o in got]),
-            np.array([np.asarray(o.box) for o in ref]))
-
-
-def test_pool_fused_staggered_attach_phases():
-    """Each fused slot runs detection cadence on its OWN frame counter: a
-    client attaching mid-stream starts at phase 0 (detect on its first
-    frame), independent of the pool tick count."""
-    va = synthesize(SynthSpec(duration_s=2.0, bpm=84.0, height=48,
-                              width=128, fps=10.0, noise_std=0.5))
-    cfg = live.LiveConfig(fps=va.fps, use_fused=True, detect_every=4,
-                          ring_len=20)
-    srv = serving.BpmServer(cfg, n_slots=2, donate=False)
-    a = srv.attach()
-    st_b = live.init_state(cfg)
-    stp = live.make_step(cfg, donate=False)
-    for t, f in enumerate(va.frames):
-        fr = {a: f}
-        if t == 2:
-            b = srv.attach()
-        if t >= 2:
-            fr[b] = va.frames[t - 2]
-        outs = srv.tick(fr)
-        if t >= 2:
-            st_b, ob = stp(st_b, jnp.asarray(va.frames[t - 2]))
-            assert bool(ob.face_valid) == bool(outs[b].face_valid)
-            np.testing.assert_allclose(float(ob.green_raw),
-                                       float(outs[b].green_raw),
-                                       rtol=0, atol=1e-5)
-    # Late attacher detected on ITS first frame despite pool phase 2.
-    assert bool(outs[b].face_valid)
-
-
-def test_pool_fused_rejects_bad_config():
-    cfg = live.LiveConfig(use_fused=True, roi_site="forehead")
-    with pytest.raises(ValueError, match="cheek"):
-        serving.BpmServer(cfg, n_slots=2)
-    cfg2 = live.LiveConfig(use_fused=True)
-    with pytest.raises(ValueError, match="detector"):
-        serving.BpmServer(cfg2, n_slots=2, detector=lambda f: None)
-    with pytest.raises(ValueError, match="single-face"):
-        serving.BpmServer(cfg2, n_slots=2, k_faces=2)
 
 
 def test_served_adaptive_client_rejects_flicker():

@@ -102,7 +102,7 @@ def run_sweep(video_path: str, truth_path: str, degradations, methods,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="HR estimation under degradation (TPU-native)")
+        description="HR estimation under degradation")
     parser.add_argument("--video", required=True,
                         help="input video filename (in --videos-dir or a path)")
     parser.add_argument("--degradation", nargs="*", default=[ORIGINAL],

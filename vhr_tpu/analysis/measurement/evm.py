@@ -30,11 +30,8 @@ def measure(video_path: str) -> np.ndarray:
     T = frames.shape[0]
     if T == 0:
         return np.empty((0, 2))
-    use_pallas = (jax.devices()[0].platform not in ("cpu",)
-                  and frames.shape[2] % 128 == 0)
     sig = evm.magnified_pulse(jnp.asarray(frames), fps,
-                              HRBand(0.65, 3.4), levels=LEVELS,
-                              use_pallas=use_pallas)          # (T, 3)
+                              HRBand(0.65, 3.4), levels=LEVELS)  # (T, 3)
 
     window_len = int(WINDOW_SIZE * fps)
     acq_len = int(ACQUISITION_TIME * fps)

@@ -50,7 +50,7 @@ def compute_stats(video_path: str, chunk_frames: int = 256) -> dict:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="Video statistics (TPU)")
+    p = argparse.ArgumentParser(description="Video statistics")
     p.add_argument("video", nargs="?")
     p.add_argument("--videos-dir", default="video-footage")
     p.add_argument("--json", action="store_true")

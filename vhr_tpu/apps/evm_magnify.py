@@ -39,17 +39,11 @@ def main(argv=None) -> int:
                     band=HRBand(args.low_hz, args.high_hz))
 
     import cv2
-    import jax
     writer = None
     total = 0
     for chunk, fps, _ in vio.iter_video_chunks(
             args.input, chunk_frames=max(16, int(args.chunk_seconds * 30))):
-        # Both full-res stages run as fused Pallas kernels on TPU when the
-        # width qualifies (3.5x over the XLA path at 1080p).
-        use_pallas = (jax.default_backend() == "tpu"
-                      and chunk.shape[2] % 128 == 0 and args.levels >= 1)
-        out = np.asarray(evm.magnify(jnp.asarray(chunk), float(fps), cfg,
-                                     use_pallas=use_pallas))
+        out = np.asarray(evm.magnify(jnp.asarray(chunk), float(fps), cfg))
         if writer is None:
             h, w = out.shape[1:3]
             writer = cv2.VideoWriter(args.output,

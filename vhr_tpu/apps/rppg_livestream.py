@@ -9,12 +9,11 @@ donated pytree; the host never touches a filter coefficient.
 Usage::
 
     python -m vhr_tpu.apps.rppg_livestream [--camera 0] [--video FILE]
-        [--max-frames N] [--no-display] [--fused] [--faces K]
+        [--max-frames N] [--no-display] [--faces K]
         [--detector skin|landmarker|refined|mediapipe[-bf16|-exact]]
 
 ``--video`` replays a file as if it were a camera (useful headless);
 ``--no-display`` prints the BPM trace instead of opening windows;
-``--fused`` routes detection+ROI through the single-pass Pallas kernel;
 ``--faces K`` monitors K subjects concurrently (K live chains on device).
 """
 
@@ -160,7 +159,7 @@ def run(source, cfg, max_frames=None, display=True, k_faces=1,
 def main(argv=None) -> int:
     from ..pipeline import live
 
-    p = argparse.ArgumentParser(description="Live heart-rate (TPU)")
+    p = argparse.ArgumentParser(description="Live heart-rate")
     p.add_argument("--camera", type=int, default=0)
     p.add_argument("--video", default=None,
                    help="replay a video file instead of a camera")
@@ -182,10 +181,6 @@ def main(argv=None) -> int:
                         "(default is 1-frame-deep pipelining: dispatch N+1 "
                         "while N computes — lower latency per frame, one "
                         "frame of answer lag)")
-    p.add_argument("--fused", action="store_true",
-                   help="single-HBM-pass Pallas detection (needs frame "
-                        "H %% 8 == 0 and W*3 %% 128 == 0); lowest-latency "
-                        "production mode")
     p.add_argument("--faces", type=int, default=1,
                    help="monitor up to K subjects at once (the reference "
                         "requests num_faces=2 but only processes face 0; "
@@ -221,24 +216,17 @@ def main(argv=None) -> int:
                         "--faces >1 uses its own multi-face detectors")
     args = p.parse_args(argv)
 
-    if args.fused and args.faces > 1:
-        p.error("--fused is single-face; drop it or use --faces 1")
-    if args.fused and args.detector != "skin":
-        p.error("--fused runs the in-kernel skin detector")
     detector = None
     if args.detector != "skin":
         if args.faces == 1:
             from .rppg_video import _resolve_detector
             detector = _resolve_detector(args.detector)
         else:
-            # Multi-face honors --detector too (ADVICE r2): tiled learned
+            # Multi-face honors --detector too: tiled learned
             # proposals or the skin+refine cascade instead of pure chroma.
             from .rppg_video import _resolve_detector_multi
             detector = _resolve_detector_multi(args.detector, args.faces)
     cfg = live.LiveConfig(detect_every=args.detect_every)
-    if args.fused:
-        cfg = dataclasses.replace(cfg, use_fused=True, detect_row_pool=8,
-                                  gate_margin=0.15)
     source = args.video if args.video is not None else args.camera
     print("PRESS q to quit -- PRESS spacebar to pause")
     plot_out = args.plot_out

@@ -2,7 +2,7 @@
 
 The reference interleaves decode, detection, filtering, Welch estimation and
 matplotlib/cv2 UI in one per-frame ``while True`` (``rppg_VIDEO.py:354-430``),
-recomputing the full 10 s filter+Welch stack every frame.  The TPU-first
+recomputing the full 10 s filter+Welch stack every frame.  The batched
 inversion: the whole video is processed as one batched program (all three
 filters — Butterworth-2, Cheby2-4, FIR-41 — over every window at once), then
 the results are rendered: an annotated output video (face box + cheek/
@@ -207,7 +207,7 @@ def render_multi(results, out_dir: str) -> None:
 
 def live_panel_data(results, window_seconds: float = 10.0):
     """Per-frame trailing-window PSDs for the in-loop panels, computed in
-    ONE batched device call (the TPU-correct schedule for the reference's
+    ONE batched device call (the device-friendly schedule for the reference's
     per-frame display loop, ``rppg_VIDEO.py:305-328, 385-411``: it
     re-filters + re-Welchs the trailing window on the host EVERY frame;
     here all T windows batch into one program and the host only draws).
@@ -388,7 +388,7 @@ def pick_video(videos_dir: str) -> str:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="Offline video heart-rate (TPU)")
+    p = argparse.ArgumentParser(description="Offline video heart-rate")
     p.add_argument("video", nargs="?", help="video path (omit for picker)")
     p.add_argument("--videos-dir", default="videos")
     p.add_argument("--out-dir", default="rppg_out")

@@ -1,6 +1,6 @@
-"""FastICA on TPU: batched blind source separation for the ICA rPPG method.
+"""FastICA: batched blind source separation for the ICA rPPG method.
 
-TPU-native replacement for ``sklearn.decomposition.FastICA`` as configured at
+A batched JAX replacement for ``sklearn.decomposition.FastICA`` as configured at
 ``analysis/measurement/ica.py:36-44`` (3 components, parallel algorithm,
 logcosh nonlinearity, max_iter=300, tol=1e-6, unit-variance whitening,
 random_state=0).  The per-window solve is a fixed-point iteration under
@@ -24,6 +24,12 @@ import numpy as np
 __all__ = ["ICAResult", "fastica", "default_w_init", "ica_sources"]
 
 
+def _mm(a, b):
+    """Exact-f32 matmul: the fixed-point iteration and its tol=1e-6 stop test
+    would not survive TF32 rounding (about 11 significant bits)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 class ICAResult(NamedTuple):
     sources: jnp.ndarray      # (T, C) estimated independent components
     converged: jnp.ndarray    # () bool — False mirrors ConvergenceWarning
@@ -38,9 +44,9 @@ def default_w_init(n_components: int, seed: int = 0) -> np.ndarray:
 
 def _sym_decorrelation(W: jnp.ndarray) -> jnp.ndarray:
     """W <- (W W^T)^{-1/2} W via eigendecomposition (sklearn semantics)."""
-    s, u = jnp.linalg.eigh(W @ W.T)
+    s, u = jnp.linalg.eigh(_mm(W, W.T))
     s = jnp.clip(s, 1e-12, None)
-    return (u * (1.0 / jnp.sqrt(s))) @ u.T @ W
+    return _mm(_mm(u * (1.0 / jnp.sqrt(s)), u.T), W)
 
 
 def _whiten_unit_variance(X: jnp.ndarray, n_components: int,
@@ -60,7 +66,7 @@ def _whiten_unit_variance(X: jnp.ndarray, n_components: int,
     u, d, _ = jnp.linalg.svd(XT, full_matrices=False)
     u = u * jnp.sign(u[0])                     # sklearn's deterministic sign
     K = (u / d).T[:n_components]               # (C, F)
-    X1 = (K @ XT) * jnp.sqrt(n)
+    X1 = _mm(K, XT) * jnp.sqrt(n)
     return X1, K
 
 
@@ -102,18 +108,18 @@ def fastica(X: jnp.ndarray,
 
     def body(carry):
         W, ii, _ = carry
-        gwtx = jnp.tanh(W @ X1)                # padded cols stay 0
+        gwtx = jnp.tanh(_mm(W, X1))             # padded cols stay 0
         # E[1 - g^2] over *valid* samples only.
         g_wtx = jnp.sum(jnp.where(mask, 1.0 - gwtx**2, 0.0), axis=-1) / n
-        W1 = _sym_decorrelation(gwtx @ X1.T / n - g_wtx[:, None] * W)
-        lim = jnp.max(jnp.abs(jnp.abs(jnp.diagonal(W1 @ W.T)) - 1.0))
+        W1 = _sym_decorrelation(_mm(gwtx, X1.T) / n - g_wtx[:, None] * W)
+        lim = jnp.max(jnp.abs(jnp.abs(jnp.diagonal(_mm(W1, W.T))) - 1.0))
         return W1, ii + 1, lim
 
     W, n_iter, lim = jax.lax.while_loop(
         cond, body, (W0, jnp.int32(0), jnp.asarray(jnp.inf, X.dtype)))
     converged = lim < tol
 
-    S = (W @ X1).T / jnp.sqrt(n)               # undo the sqrt(n) scaling
+    S = _mm(W, X1).T / jnp.sqrt(n)            # undo the sqrt(n) scaling
     # whiten="unit-variance": rescale to unit std (ddof=0 over valid rows;
     # sources are zero-mean so std = sqrt(E[S^2]); padded rows are zero).
     std = jnp.sqrt(jnp.sum(S * S, axis=0, keepdims=True) / n)

@@ -151,7 +151,8 @@ def omit_pulse(bgr: jnp.ndarray, valid: jnp.ndarray, fps: float,
     mean = jnp.mean(C, axis=2)                           # (N, 3)
     q0 = mean / (jnp.linalg.norm(mean, axis=1,
                                  keepdims=True) + eps)   # (N, 3)
-    coef = jnp.einsum("nc,ncl->nl", q0, C)               # (N, L)
+    coef = jnp.einsum("nc,ncl->nl", q0, C,
+                      precision=jax.lax.Precision.HIGHEST)  # (N, L)
     resid = C - q0[:, :, None] * coef[:, None, :]
     s = resid[:, 1, :]                                   # (N, L) green row
     s = s - jnp.mean(s, axis=1, keepdims=True)

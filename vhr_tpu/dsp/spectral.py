@@ -1,6 +1,6 @@
-"""Spectral BPM estimation on TPU: FFT peak picking and Welch PSD.
+"""Spectral BPM estimation: FFT peak picking and Welch PSD.
 
-TPU-native re-design of the reference's three estimators:
+A batched re-design of the reference's three estimators:
 
 * ``analysis/utils/estimate_bpm.py:12-82`` — multichannel FFT peak in a
   physiological band, best channel wins;
@@ -11,7 +11,7 @@ TPU-native re-design of the reference's three estimators:
 
 Everything here is pure, statically-shaped, and batched: the reference's
 ``None`` returns become a ``valid`` mask so the functions compose under
-``jit``/``vmap``/``shard_map``.  ``jnp.fft.rfft`` lowers to the XLA TPU FFT.
+``jit``/``vmap``/``shard_map``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import HRBand
+
+# The explicit DFT ramp multiplies unit-scale trig rows into pixel-scale
+# signals; TF32 would keep only ~11 bits of each product, so it is exact f32.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "BPMEstimate",
@@ -167,8 +171,8 @@ def estimate_bpm_multichannel_exact(signal: jnp.ndarray, n_valid,
     k = jnp.arange(k_max + 1, dtype=signal.dtype)
 
     ang = (-2.0 * jnp.pi / N) * k[:, None] * n[None, :]     # (K, T)
-    re = jnp.cos(ang) @ signal                              # (K, C)
-    im = jnp.sin(ang) @ signal
+    re = jnp.matmul(jnp.cos(ang), signal, precision=_HIGHEST)  # (K, C)
+    im = jnp.matmul(jnp.sin(ang), signal, precision=_HIGHEST)
     mags = jnp.sqrt(re * re + im * im)
 
     freq = k * (fs / N)

@@ -1,4 +1,4 @@
-"""The reference's production face pipeline, TPU-native.
+"""The reference's production face pipeline, as batched JAX.
 
 Ports the *weights* of MediaPipe's ``face_landmarker.task`` (BlazeFace
 short-range detector + 478-point face-mesh landmarks) into JAX via the
@@ -22,14 +22,14 @@ Reference consumers: ``/root/reference/analysis/utils/roi.py:70-110``
   256x256 RGB in [0, 1]; outputs 478 xyz landmarks in crop pixels and a
   face-presence logit (sigmoid -> min_face_presence_confidence 0.5).
 
-TPU-first shape: all T frames run the conv nets as one batch (MXU), the
-per-frame NMS/crop logic is vmapped, and the whole detector is exposed as
-a ``jax.tree_util.Partial`` so weights stay traced arguments.
+Shape: all T frames run the conv nets as one batch, the per-frame
+NMS/crop logic is vmapped, and the whole detector is exposed as a
+``jax.tree_util.Partial`` so weights stay traced arguments.
 
 Crop modes: ``crop_mode="axis"`` (default) samples the mesh-net crop
-axis-aligned as two separable interp-matrix MXU products
-(:func:`_crop_axis_mxu` — ~10x pipeline throughput; <1 px landmark delta
-at 10 deg roll, docs/DETECTION.md); ``"exact"`` keeps MediaPipe's rotated
+axis-aligned as two separable interp-matrix products
+(:func:`_crop_axis_mxu` — <1 px landmark delta at 10 deg roll,
+docs/DETECTION.md); ``"exact"`` keeps MediaPipe's rotated
 bilinear sampling via the packed-tap gather.  The detector's eye-line
 roll is still used by :func:`make_mediapipe_roi_detector` to carve
 pose-robust cheek ROIs in the rolled face frame.
@@ -96,35 +96,22 @@ _CACHE = {}
 
 
 def load_face_models(task_path: Optional[str] = None, compute_dtype=None,
-                     activation_dtype=None, fuse_stages=False):
+                     activation_dtype=None):
     """Parse the .task zip once -> (params pytree, det apply, lm apply).
 
-    ``compute_dtype=jnp.bfloat16`` runs both conv nets' MXU work in bf16
-    (f32 accumulate; see :func:`vhr_tpu.models.tflite_exec.build_jax`).
-    ``activation_dtype=jnp.bfloat16`` additionally stores the feature
-    maps in bf16 — these nets are HBM-bound on activations (the mesh
-    graph moves ~90 MB of f32 feature maps per frame), so THIS is the
-    mode that moves throughput (docs/PERFORMANCE.md roofline table);
-    landmark RMS delta vs f32 is pinned in tests/test_mediapipe_face.py.
-
-    ``fuse_stages``: run the mesh net's residual bottleneck stages as
-    VMEM-resident Pallas kernels (``ops/pallas_meshblocks.py``; "auto"
-    = on real TPU only).  Output parity with the unfused executor is
-    pinned in tests/test_mediapipe_face.py (f32-reassociation tolerance).
+    ``compute_dtype=jnp.bfloat16`` runs both conv nets' convolutions in
+    bf16 (f32 accumulate; see :func:`vhr_tpu.models.tflite_exec.build_jax`
+    for the precision of each mode).  ``activation_dtype=jnp.bfloat16``
+    additionally stores the feature maps in bf16 — these nets move far
+    more bytes of feature maps than of weights (the mesh graph holds ~90 MB
+    of f32 feature maps per frame), so this is the mode that halves their
+    traffic; landmark RMS delta vs f32 is pinned in
+    tests/test_mediapipe_face.py.
     """
     task_path = task_path or default_task_path()
-    if fuse_stages == "auto":
-        # VMEM-fused residual stages only pay on the real MXU/VMEM
-        # hierarchy; the interpret-mode kernel would slow CPU tests ~10x.
-        fuse_stages = jax.default_backend() == "tpu"
-        fuse_interpret = False
-    else:
-        fuse_stages = bool(fuse_stages)
-        fuse_interpret = fuse_stages and jax.default_backend() != "tpu"
     key = (task_path,
            np.dtype(compute_dtype).name if compute_dtype else None,
-           np.dtype(activation_dtype).name if activation_dtype else None,
-           fuse_stages)
+           np.dtype(activation_dtype).name if activation_dtype else None)
     if key in _CACHE:
         return _CACHE[key]
     from .tflite import load_task_models
@@ -135,8 +122,7 @@ def load_face_models(task_path: Optional[str] = None, compute_dtype=None,
                                       activation_dtype=activation_dtype)
     lm_params, lm_apply = build_jax(
         models["face_landmarks_detector.tflite"].graph,
-        compute_dtype=compute_dtype, activation_dtype=activation_dtype,
-        fuse_stages=fuse_stages, fuse_interpret=fuse_interpret)
+        compute_dtype=compute_dtype, activation_dtype=activation_dtype)
     # In the bf16-activation mode, letterbox/crops interchange in bf16 too
     # (the net stores bf16 feature maps anyway; the full-res input casts
     # are the pre-net stages' dominant HBM term — detect_faces_mp /
@@ -187,34 +173,28 @@ def _letterbox(frames_bgr_u8: jnp.ndarray, size: int, lo: float, hi: float,
                dtype=jnp.float32):
     """(T, H, W, 3) BGR u8 -> (T, size, size, 3) RGB in [lo, hi].
 
-    ``dtype=jnp.bfloat16`` (the bf16-activation pipeline, r4) casts the
-    frame ONCE to bf16 instead of f32 before the interp products — the
-    full-resolution cast is a materialized HBM tensor (the dot can't read
-    u8), so halving it halves this stage's dominant traffic term
-    (profiled 16.0 us/frame f32 at 720p, tools/profile_mediapipe.py).
-    u8 values are exact in bf16; the interp weights round to 2^-9 — the
-    same ~1 LSB bound as the bf16 crop (docstring at _crop_axis_mxu).
+    ``dtype=jnp.bfloat16`` (the bf16-activation pipeline) casts the frame
+    ONCE to bf16 instead of f32 before the interp products — the
+    full-resolution cast may be a materialized tensor (the dot can't read
+    u8), so halving it halves this stage's dominant traffic term.  u8
+    values are exact in bf16; the interp weights round to 2^-9 — the same
+    ~1 LSB bound as the bf16 crop (docstring at _crop_axis_mxu).  In the
+    f32 mode the products run at XLA's default precision (TF32 on an
+    NVIDIA GPU), a bound of the same order.
 
-    The resize runs as two separable interp-matrix MXU products straight
-    off the u8 input (the ``_crop_axis_mxu`` trick): ``jax.image.resize``
-    on a pre-materialized f32 frame costs a full-resolution f32
-    round-trip through HBM (~22 us/frame at 720p, the profiled r3
-    letterbox); the matmul form reads the 2.7 MB u8 frame once and its
-    intermediates are already width-128 (measured ~7x,
-    docs/PERFORMANCE.md).  Values match ``jax.image.resize('bilinear')``
-    (antialiased) to matmul-reassociation tolerance
-    (tests/test_mediapipe_face.py)."""
+    The resize runs as two separable interp-matrix products straight off
+    the u8 input (the ``_crop_axis_mxu`` trick) instead of
+    ``jax.image.resize`` on a pre-materialized f32 frame, so the u8 frame
+    is read once and the intermediates are already 128 wide.  Values
+    match ``jax.image.resize('bilinear')`` (antialiased) to
+    matmul-reassociation tolerance (tests/test_mediapipe_face.py)."""
     T, H, W, _ = frames_bgr_u8.shape
     scale, h2, w2, pad_x, pad_y = _letterbox_geometry(H, W, size)
     ax = jnp.asarray(_resize_matrix(W, w2), dtype)       # (w2, W)
     ay = jnp.asarray(_resize_matrix(H, h2), dtype)       # (h2, H)
-    # BGR->RGB AFTER the resize, on the (T, h2, w2, 3) sliver: a channel
-    # reverse fused into the *input* of these two chained einsums
-    # miscompiles on XLA:TPU for every T >= 64 (content-region values off
-    # by up to 197/255 while T <= 16 is exact; reproduced f32 AND bf16,
-    # tools/check_tpu_letterbox.py).  Resize is channel-wise, so flipping
-    # the output is bit-identical math — and verified correct at T up to
-    # 512 on-chip.
+    # BGR->RGB AFTER the resize, on the (T, h2, w2, 3) sliver: resize is
+    # channel-wise, so flipping the small output is bit-identical math and
+    # touches 3 channels of a 128x128 canvas instead of the full frame.
     bgr = frames_bgr_u8.astype(dtype)
     tmp = jnp.einsum("thwc,mw->thmc", bgr, ax)           # x-pass (T,H,w2,3)
     small = jnp.einsum("nh,thmc->tnmc", ay, tmp)[..., ::-1]   # (T,h2,w2,3)
@@ -310,16 +290,13 @@ def _pack_taps(img_rgb_f32: jnp.ndarray) -> jnp.ndarray:
     neighborhood packed into channels: [p(y,x), p(y,x+1), p(y+1,x),
     p(y+1,x+1)].
 
-    Why: XLA's TPU gather costs per gathered *position* almost regardless
-    of the trailing slice width (measured on-chip; a (1,1,12) slice costs
-    about the same as (1,1,3)).  Packing the four taps into channels lets
-    the rotated-crop gather fetch all of them in ONE position per output
-    pixel -- 65k positions instead of 262k.  The pack is stored bf16
-    (halves gather bandwidth) which is lossless for u8 pixel values
-    (integers <= 256 are exact in bf16); taps are cast back to f32 before
-    the lerp, so the result stays bit-exact vs ``_crop_rotated_ref``.
-    Measured on the production pipeline: 3.69 -> 1.49 ms/frame e2e
-    (``bench.py bench_mediapipe``, 720p, detect+mesh every frame).
+    Why: a gather pays per gathered *position* more than per byte, so
+    packing the four taps into channels lets the rotated-crop gather fetch
+    all of them in ONE position per output pixel -- 65k positions instead
+    of 262k.  The pack is stored bf16 (halves gather bandwidth) which is
+    lossless for u8 pixel values (integers <= 256 are exact in bf16); taps
+    are cast back to f32 before the lerp, so the result stays bit-exact vs
+    ``_crop_rotated_ref``.
     """
     img = img_rgb_f32.astype(jnp.bfloat16)
     a = jnp.concatenate([img[:, :-1], img[:, 1:]], axis=-1)
@@ -348,9 +325,8 @@ def _crop_rotated_from_taps(packed: jnp.ndarray, H: int, W: int,
     fx, fy = xs - x0, ys - y0
     x0i = jnp.clip(x0.astype(jnp.int32), 0, W - 1)
     y0i = jnp.clip(y0.astype(jnp.int32), 0, H - 1)
-    # Explicit gather with uncollapsed size-1 slice dims + CLIP mode:
-    # this exact dimension-number layout measured 685 us/frame on-chip;
-    # jnp __getitem__ (collapsed dims, fill mode) lowers ~2.5x slower.
+    # Explicit gather with uncollapsed size-1 slice dims + CLIP mode (no
+    # out-of-bounds fill select, unlike jnp __getitem__).
     idx = jnp.stack([jnp.minimum(y0i, H - 2).ravel(),
                      jnp.minimum(x0i, W - 2).ravel()], axis=-1)
     g = jax.lax.gather(
@@ -385,7 +361,7 @@ def _crop_rotated(frame_bgr_u8: jnp.ndarray, rect: _Rect, size: int):
 
 def _crop_rotated_ref(frame_bgr_u8: jnp.ndarray, rect: _Rect, size: int):
     """Direct 4-gather reference formulation (test oracle for the packed
-    fast path; 5.2x slower on TPU, kept for parity tests only)."""
+    fast path, kept for parity tests only)."""
     H, W, _ = frame_bgr_u8.shape
     img = frame_bgr_u8[..., ::-1].astype(jnp.float32)
     u = (jnp.arange(size, dtype=jnp.float32) + 0.5) / size - 0.5
@@ -423,37 +399,34 @@ def _interp_matrix(coords: jnp.ndarray, n_src: int) -> jnp.ndarray:
 
 def _crop_axis_mxu(frame_bgr_u8: jnp.ndarray, rect: _Rect, size: int,
                    dtype=jnp.float32):
-    """Axis-aligned bilinear crop as two MXU matmuls (rect.rot ignored) ->
+    """Axis-aligned bilinear crop as two matmuls (rect.rot ignored) ->
     (size, size, 3) RGB [0, 1] in ``dtype``.
 
-    ``dtype=jnp.bfloat16`` (r4): the full-frame cast feeding the x-pass is
-    this stage's dominant HBM term (profiled 25.1 us/frame f32 at 720p);
-    bf16 halves it AND feeds the bf16-activation mesh net its input dtype
-    directly (no second cast).
+    ``dtype=jnp.bfloat16``: the full-frame cast feeding the x-pass is this
+    stage's dominant memory term; bf16 halves it AND feeds the
+    bf16-activation mesh net its input dtype directly (no second cast).
 
-    The rotated-crop gather costs ~13 ns per output position on TPU no
-    matter how it is formulated (measured: sorted/flat/small-source/wide
-    -slice variants all within 2x) — 0.8-1.3 ms per 256x256 crop.  An
-    axis-aligned crop is separable, so it runs as two dense interp-matrix
-    products on the MXU instead: ~25x faster.  Fidelity: the mesh net
-    tolerates in-crop roll (measured on the real-portrait corpus: mean
-    landmark deviation vs the exact rotated crop is <1 px up to 10 deg,
-    2.2 px at 20 deg, landmark-bbox IoU >=0.98 through 20 deg), so
-    ``crop_mode="axis"`` is the product path and ``"exact"`` keeps the
-    gather for MediaPipe-exact sampling at large rolls.
+    An axis-aligned crop is separable, so it runs as two dense
+    interp-matrix products instead of a per-output-pixel gather.
+    Fidelity: the mesh net tolerates in-crop roll (measured on the
+    real-portrait corpus: mean landmark deviation vs the exact rotated
+    crop is <1 px up to 10 deg, 2.2 px at 20 deg, landmark-bbox IoU >=0.98
+    through 20 deg), so ``crop_mode="axis"`` is the product path and
+    ``"exact"`` keeps the gather for MediaPipe-exact sampling at large
+    rolls.
 
-    Matmuls run at DEFAULT (bf16-input) precision: u8 pixel values are
-    exact in bf16 and the interp weights round to 2^-9, bounding the
-    output error at ~1 u8 LSB — pinned by the tolerance test vs
+    Matmuls run at DEFAULT precision (bf16 inputs in the product mode;
+    TF32 on an NVIDIA GPU in the f32 mode): u8 pixel values are exact in
+    bf16 and the interp weights round to 2^-9, bounding the output error
+    at ~1 u8 LSB — pinned by the tolerance test vs
     ``_crop_rotated_ref(rot=0)``.
     """
     H, W, _ = frame_bgr_u8.shape
     u = (jnp.arange(size, dtype=jnp.float32) + 0.5) / size - 0.5
     gx = _interp_matrix(rect.cx + u * rect.side, W).astype(dtype)  # (size,W)
     gy = _interp_matrix(rect.cy + u * rect.side, H).astype(dtype)  # (size,H)
-    # Channel reverse AFTER the products — reverse fused into the input
-    # of chained einsums miscompiles on XLA:TPU at batch >= 64 once the
-    # caller vmaps this over frames (see _letterbox).
+    # Channel reverse AFTER the products, on the small output (see
+    # _letterbox).
     img = frame_bgr_u8.astype(dtype)
     tmp = jnp.einsum("hwc,mw->hmc", img, gx)             # x-pass (H, size, 3)
     out = jnp.einsum("nh,hmc->nmc", gy, tmp)[..., ::-1]  # y-pass, BGR->RGB
@@ -482,8 +455,7 @@ def detect_faces_mp(params: MediaPipeFaceParams, det_apply, frames,
     io = getattr(det_apply, "io_dtype", None) or jnp.float32
     x = _letterbox(frames, _DET_SIZE, -1.0, 1.0, dtype=io)
     # One flat (T, ...) batch through the conv net — build_jax reshapes
-    # are batch-agnostic, and the flat form measured ~30% faster than a
-    # vmapped batch-1 apply on-chip (tools/profile_mediapipe.py).
+    # are batch-agnostic, so no vmap of a batch-1 apply is needed.
     reg, cls = det_apply(params.det, x)                  # (T,896,16),(T,896,1)
     anchors = jnp.asarray(blazeface_anchors())
     boxes, scores, kps = _decode_detections(reg, cls, anchors)
@@ -503,7 +475,7 @@ def _crop_faces(frames: jnp.ndarray, rects: _Rect, size: int,
     size, 3) RGB [0, 1] crops, blocking over T to bound intermediate
     memory.  ``mode="exact"``: rotated bilinear sampling via the packed
     -tap gather (one packed array per frame shared across the K faces).
-    ``mode="axis"``: axis-aligned separable MXU crop (``_crop_axis_mxu``;
+    ``mode="axis"``: axis-aligned separable matmul crop (``_crop_axis_mxu``;
     rect.rot must already be zeroed by the caller so projection agrees)."""
     T, H, W, _ = frames.shape
     K = rects.cx.shape[-1]
@@ -547,8 +519,9 @@ def face_landmarks(params: MediaPipeFaceParams, lm_apply, frames, rects,
     presence (T, K)).  ``crop_mode="axis"`` (product default) feeds the
     mesh an unrotated crop — the ROI rotation is dropped consistently
     from both sampling and re-projection, trading <1 px landmark
-    deviation at typical rolls (see ``_crop_axis_mxu``) for ~4x pipeline
-    throughput; ``"exact"`` keeps MediaPipe's rotated sampling."""
+    deviation at typical rolls (see ``_crop_axis_mxu``) for a dense
+    product in place of a gather; ``"exact"`` keeps MediaPipe's rotated
+    sampling."""
     if crop_mode == "axis":
         rects = rects._replace(rot=jnp.zeros_like(rects.rot))
     T = frames.shape[0]
@@ -740,17 +713,16 @@ def make_mediapipe_detector(task_path: Optional[str] = None,
     ``pipeline.offline.extract_signals(detector=...)`` / ``live.step``
     exactly like the learned-landmarker detector.  Boxes are landmark
     min/max, the reference's definition (analysis/utils/roi.py:43-51).
-    ``crop_mode``: "axis" (MXU separable crop, ~4x faster pipeline) or
-    "exact" (MediaPipe's rotated bilinear sampling).
+    ``crop_mode``: "axis" (separable matmul crop) or "exact" (MediaPipe's
+    rotated bilinear sampling).
 
-    The product default is the **bf16-activation** pipeline (r4): the
+    The product default is the **bf16-activation** pipeline: the
     reference's own runtime executes these weights as fp16 TFLite
     kernels, so bf16 storage is precision-comparable to the system being
-    reproduced — and it is ~1.9x faster end-to-end (these nets are
-    HBM-bound on activations; docs/PERFORMANCE.md roofline).  Landmark
-    RMS vs the f32 path is pinned <=0.35 px
-    (tests/test_mediapipe_face.py); pass ``activation_dtype=None`` for
-    the full-f32 path."""
+    reproduced, and it halves the feature-map traffic that dominates
+    these nets.  Landmark RMS vs the f32 path is pinned in
+    tests/test_mediapipe_face.py; pass ``activation_dtype=None`` for the
+    f32-storage path."""
     if activation_dtype == "default":
         activation_dtype = jnp.bfloat16
     params, det_apply, lm_apply = load_face_models(

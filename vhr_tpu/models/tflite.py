@@ -3,11 +3,12 @@
 The reference ships its face models as MediaPipe's ``face_landmarker.task``
 (a zip of ``.tflite`` graphs, consumed via the mediapipe runtime at
 ``/root/reference/analysis/utils/roi.py:70-90`` and
-``/root/reference/rppg_VIDEO.py:25-46``).  mediapipe/TF are not in this
-image, so this module reads the flatbuffer *directly*: the `flatbuffers`
-pip package provides the low-level vtable navigation (``flatbuffers.Table``)
-and the TFLite schema's stable field ids are transcribed here from the
-public ``tensorflow/lite/schema/schema.fbs``.
+``/root/reference/rppg_VIDEO.py:25-46``).  This module reads the
+flatbuffer *directly* with ``struct`` — a few lines of vtable navigation
+(the FlatBuffers binary format: little-endian tables that point at a
+vtable of 16-bit field offsets) — and the TFLite schema's stable field ids
+transcribed from the public ``tensorflow/lite/schema/schema.fbs``.  No
+TensorFlow, MediaPipe or ``flatbuffers`` package is needed.
 
 Output is a plain :class:`TFLiteModel` graph description (tensors with
 shapes/dtypes/constant data, operators with resolved builtin names and
@@ -18,13 +19,11 @@ function and a numpy oracle.
 from __future__ import annotations
 
 import dataclasses
+import struct
 import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-
-import flatbuffers
-from flatbuffers import number_types as NT
 
 __all__ = ["TFLiteModel", "Subgraph", "Tensor", "Operator",
            "parse_tflite", "load_task_models", "BUILTIN_NAMES"]
@@ -61,78 +60,99 @@ PAD_NAMES = {0: "SAME", 1: "VALID"}
 
 # --- tiny vtable navigation layer -----------------------------------------
 
+def _u32(buf: bytes, pos: int) -> int:
+    return struct.unpack_from("<I", buf, pos)[0]
+
+
 class _T:
-    """One flatbuffer table; field ids resolve via the vtable."""
+    """One flatbuffer table; field ids resolve via the vtable.
+
+    A table starts with a signed 32-bit offset back to its vtable; the
+    vtable holds its own byte size, the table's size, then one u16 offset
+    per field (0 = field absent).  Offsets to sub-tables, vectors and
+    strings are u32, relative to where they are stored.
+    """
 
     def __init__(self, buf: bytes, pos: int):
-        self.tab = flatbuffers.table.Table(buf, pos)
+        self.buf = buf
+        self.pos = pos
+        self.vtable = pos - struct.unpack_from("<i", buf, pos)[0]
+        self.vt_size = struct.unpack_from("<H", buf, self.vtable)[0]
 
     def _off(self, field_id: int) -> int:
-        return self.tab.Offset(4 + 2 * field_id)
+        """Byte offset of the field inside the table, 0 when absent."""
+        slot = 4 + 2 * field_id
+        if slot >= self.vt_size:
+            return 0
+        return struct.unpack_from("<H", self.buf, self.vtable + slot)[0]
 
-    def scalar(self, field_id: int, flags, default=0):
+    def scalar(self, field_id: int, fmt: str, default=0):
         o = self._off(field_id)
         if o == 0:
             return default
-        return self.tab.Get(flags, o + self.tab.Pos)
+        return struct.unpack_from("<" + fmt, self.buf, self.pos + o)[0]
 
     def i32(self, fid, default=0):
-        return int(self.scalar(fid, NT.Int32Flags, default))
+        return int(self.scalar(fid, "i", default))
 
     def u32(self, fid, default=0):
-        return int(self.scalar(fid, NT.Uint32Flags, default))
+        return int(self.scalar(fid, "I", default))
 
     def i8(self, fid, default=0):
-        return int(self.scalar(fid, NT.Int8Flags, default))
+        return int(self.scalar(fid, "b", default))
 
     def u8(self, fid, default=0):
-        return int(self.scalar(fid, NT.Uint8Flags, default))
+        return int(self.scalar(fid, "B", default))
+
+    def f32(self, fid, default=0.0):
+        return float(self.scalar(fid, "f", default))
 
     def boolean(self, fid, default=False):
-        return bool(self.scalar(fid, NT.BoolFlags, default))
+        return bool(self.scalar(fid, "B", default))
+
+    def _indirect(self, field_id: int) -> int:
+        """Absolute position the (offset-typed) field points at, or 0."""
+        o = self._off(field_id)
+        if o == 0:
+            return 0
+        at = self.pos + o
+        return at + _u32(self.buf, at)
 
     def string(self, fid) -> Optional[str]:
-        o = self._off(fid)
-        if o == 0:
+        at = self._indirect(fid)
+        if at == 0:
             return None
-        return self.tab.String(o + self.tab.Pos).decode("utf-8")
+        n = _u32(self.buf, at)
+        return bytes(self.buf[at + 4:at + 4 + n]).decode("utf-8")
 
     def table(self, fid) -> Optional["_T"]:
-        o = self._off(fid)
-        if o == 0:
-            return None
-        return _T(self.tab.Bytes, self.tab.Indirect(o + self.tab.Pos))
+        at = self._indirect(fid)
+        return None if at == 0 else _T(self.buf, at)
 
     def union_table(self, fid) -> Optional["_T"]:
         """Union value field: stored like a table field."""
         return self.table(fid)
 
     def vec_len(self, fid) -> int:
-        o = self._off(fid)
-        return 0 if o == 0 else self.tab.VectorLen(o)
+        at = self._indirect(fid)
+        return 0 if at == 0 else _u32(self.buf, at)
 
     def vec_numeric(self, fid, dtype) -> np.ndarray:
-        o = self._off(fid)
-        if o == 0:
+        at = self._indirect(fid)
+        if at == 0:
             return np.zeros((0,), dtype)
-        n = self.tab.VectorLen(o)
-        start = self.tab.Vector(o)
-        itemsize = np.dtype(dtype).itemsize
-        return np.frombuffer(self.tab.Bytes, dtype,
-                             count=n, offset=start).copy()
+        return np.frombuffer(self.buf, dtype, count=_u32(self.buf, at),
+                             offset=at + 4).copy()
 
     def vec_bytes(self, fid) -> bytes:
-        o = self._off(fid)
-        if o == 0:
+        at = self._indirect(fid)
+        if at == 0:
             return b""
-        n = self.tab.VectorLen(o)
-        start = self.tab.Vector(o)
-        return bytes(self.tab.Bytes[start:start + n])
+        return bytes(self.buf[at + 4:at + 4 + _u32(self.buf, at)])
 
     def vec_table(self, fid, i: int) -> "_T":
-        o = self._off(fid)
-        start = self.tab.Vector(o) + i * 4
-        return _T(self.tab.Bytes, self.tab.Indirect(start))
+        elem = self._indirect(fid) + 4 + i * 4
+        return _T(self.buf, elem + _u32(self.buf, elem))
 
 
 # --- graph description ------------------------------------------------------
@@ -262,7 +282,7 @@ def _resize_opts(t: Optional[_T]) -> Dict[str, Any]:
 def _softmax_opts(t: Optional[_T]) -> Dict[str, Any]:
     if t is None:
         return {"beta": 1.0}
-    return {"beta": float(t.scalar(0, NT.Float32Flags, 1.0))}
+    return {"beta": t.f32(0, 1.0)}
 
 
 def _fully_connected_opts(t: Optional[_T]) -> Dict[str, Any]:
@@ -287,7 +307,7 @@ def _split_opts(t: Optional[_T]) -> Dict[str, Any]:
 def _leaky_relu_opts(t: Optional[_T]) -> Dict[str, Any]:
     if t is None:
         return {"alpha": 0.0}
-    return {"alpha": float(t.scalar(0, NT.Float32Flags, 0.0))}
+    return {"alpha": t.f32(0, 0.0)}
 
 
 def _mean_opts(t: Optional[_T]) -> Dict[str, Any]:   # ReducerOptions
@@ -362,8 +382,7 @@ def parse_tflite(data: bytes) -> TFLiteModel:
     """Parse a ``.tflite`` flatbuffer into a plain graph description."""
     if data[4:8] != b"TFL3":
         raise ValueError(f"not a TFLite v3 flatbuffer (magic {data[4:8]!r})")
-    root_pos = flatbuffers.encode.Get(flatbuffers.packer.uoffset, data, 0)
-    model = _T(data, root_pos)
+    model = _T(data, _u32(data, 0))
 
     n_codes = model.vec_len(1)
     opcodes = []

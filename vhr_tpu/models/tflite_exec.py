@@ -7,9 +7,8 @@ CONCATENATION, LOGISTIC (+ fp16-constant DEQUANTIZE, folded at load).
 Two independent executors of the same graph description:
 
 * :func:`build_jax` — the product path: weights as a pytree, a pure
-  ``apply(params, x)`` traced once under ``jit``; convs lower straight onto
-  the MXU via ``lax.conv_general_dilated`` (NHWC/HWIO), everything else
-  fuses.  Batch over frames by vmapping/batching the leading axis.
+  ``apply(params, x)`` traced once under ``jit``; convs lower to
+  ``lax.conv_general_dilated`` (NHWC/HWIO), everything else fuses.  Batch over frames by vmapping/batching the leading axis.
 * :class:`NumpyInterpreter` — the validation oracle: an im2col conv
   interpreter written against numpy only, sharing *no* execution code with
   the JAX path (TF is not in this image, so op-level validation is
@@ -72,104 +71,8 @@ def _activation(name):
     raise NotImplementedError(f"fused activation {name}")
 
 
-def _find_residual_stages(ops: List[Operator], tensors: List[Tensor]):
-    """Detect maximal fusible runs ``PRELU -> [1x1 conv, PRELU, dw3x3,
-    1x1 conv, ADD, PRELU] x N`` at constant spatial shape — the face-mesh
-    graph's residual bottleneck stages (48% of its activation traffic sits
-    in the 128x128 stage alone; docs/PERFORMANCE.md).  Each hit is handed
-    to the VMEM-resident Pallas kernel (``ops/pallas_meshblocks.py``)
-    instead of op-by-op HBM round-trips.
-
-    Safety rules: every op in the run must be activation-free where the
-    pattern requires, the ADD must close exactly over the block entry, no
-    tensor internal to the run may be read outside it, and the flattened
-    spatial extent must be a lane multiple (``H*W % 128 == 0``)."""
-    def shape(t):
-        return tuple(tensors[t].shape)
-
-    consumers: Dict[int, List[int]] = {}
-    for oi, op in enumerate(ops):
-        for t in op.inputs:
-            if t >= 0 and tensors[t].data is None:
-                consumers.setdefault(t, []).append(oi)
-
-    stages = []
-    i, n = 0, len(ops)
-    while i < n:
-        op = ops[i]
-        if op.op != "PRELU" or len(shape(op.outputs[0])) != 4:
-            i += 1
-            continue
-        _, H, W, C = shape(op.outputs[0])
-        S = H * W
-        if S < 128 or S % 128 != 0:
-            i += 1
-            continue
-        blocks, cm = [], None
-        cur = op.outputs[0]
-        j = i + 1
-        while j + 6 <= n:
-            c1, p1, dwo, c2, addo, p2 = ops[j:j + 6]
-            if not (c1.op == "CONV_2D" and c1.inputs[0] == cur
-                    and c1.options.get("activation") is None
-                    and tuple(c1.options["stride"]) == (1, 1)
-                    and shape(c1.inputs[1])[1:3] == (1, 1)
-                    and p1.op == "PRELU" and p1.inputs[0] == c1.outputs[0]
-                    and dwo.op == "DEPTHWISE_CONV_2D"
-                    and dwo.inputs[0] == p1.outputs[0]
-                    and dwo.options.get("activation") is None
-                    and tuple(dwo.options["stride"]) == (1, 1)
-                    and dwo.options["padding"] == "SAME"
-                    and dwo.options.get("depth_multiplier", 1) == 1
-                    and shape(dwo.inputs[1])[1:3] == (3, 3)
-                    and c2.op == "CONV_2D" and c2.inputs[0] == dwo.outputs[0]
-                    and c2.options.get("activation") is None
-                    and tuple(c2.options["stride"]) == (1, 1)
-                    and shape(c2.inputs[1])[1:3] == (1, 1)
-                    and shape(c2.outputs[0])[-1] == C
-                    and addo.op == "ADD"
-                    and addo.options.get("activation") is None
-                    and set(addo.inputs) == {cur, c2.outputs[0]}
-                    and p2.op == "PRELU"
-                    and p2.inputs[0] == addo.outputs[0]):
-                break
-            cm_k = shape(c1.inputs[1])[0]
-            if cm is None:
-                cm = cm_k
-            elif cm_k != cm:                  # kernel wants one Cm stack
-                break
-            blocks.append(dict(w1=c1.inputs[1], b1=c1.inputs[2],
-                               a1=p1.inputs[1], dw=dwo.inputs[1],
-                               bdw=dwo.inputs[2], w2=c2.inputs[1],
-                               b2=c2.inputs[2], a2=p2.inputs[1]))
-            cur = p2.outputs[0]
-            j += 6
-        # Internal tensors must have no readers outside the fused range
-        # (and must not be graph outputs) — otherwise fusing would drop a
-        # value someone needs.
-        if blocks:
-            internal = set()
-            for jj in range(i, j):
-                for t in ops[jj].outputs:
-                    if t != cur:
-                        internal.add(t)
-            leaks = any(not (i <= r < j)
-                        for t in internal for r in consumers.get(t, []))
-            if leaks:
-                blocks = []
-        if blocks:
-            stages.append(dict(start=i, n_ops=j - i, in_tensor=op.inputs[0],
-                               out_tensor=cur, H=H, W=W, C=C, Cm=cm,
-                               a0=op.inputs[1], blocks=blocks))
-            i = j
-        else:
-            i += 1
-    return stages
-
-
 def build_jax(graph: Subgraph, compute_dtype=None,
-              activation_dtype=None, fuse_stages: bool = False,
-              fuse_interpret: bool = False):
+              activation_dtype=None):
     """Compile the graph description to ``(params, apply)``.
 
     ``params`` maps tensor-index strings to constant arrays (a flat pytree —
@@ -177,32 +80,23 @@ def build_jax(graph: Subgraph, compute_dtype=None,
     x)`` returns the tuple of graph outputs.  Shapes are static, control
     flow is straight-line: one fused XLA program per input shape.
 
-    ``compute_dtype=jnp.bfloat16`` runs conv inputs/filters in bf16 on the
-    MXU (f32 accumulate via ``preferred_element_type``) — the weights ship
-    as fp16 constants in the flatbuffer, so bf16's 8-bit mantissa costs only
-    ~2 bits of stored precision while doubling MXU throughput.  Biases,
-    PRELU and LOGISTIC stay f32; outputs are always f32.  Activations
-    between ops stay f32, so HBM traffic is unchanged — measured, these
-    nets are HBM-bound on activations (the face-mesh graph moves ~90 MB
-    of f32 feature maps per frame, docs/PERFORMANCE.md), which is why
-    this mode alone buys only ~2%.
+    Precision of each mode (convolutions go to cuDNN on a GPU):
 
-    ``activation_dtype=jnp.bfloat16`` additionally STORES every feature
-    map in bf16 (convs emit bf16; elementwise ops run in bf16) — halving
-    activation HBM traffic, the dominant cost.  MXU accumulation is still
-    f32 internally; only inter-op storage rounds.  LOGISTIC and the graph
-    outputs are computed/returned in f32.  Precision on the real face
-    graphs: <=0.35 px landmark RMS vs the f32 path
-    (tests/test_mediapipe_face.py).
-
-    ``fuse_stages=True`` runs each detected residual bottleneck stage
-    (:func:`_find_residual_stages`) as ONE VMEM-resident Pallas kernel
-    (``ops/pallas_meshblocks.py``): the stage input is the only HBM read,
-    its output the only write — all intermediate feature maps stay
-    on-core in f32 registers (strictly more precise than the unfused
-    bf16-activation path, which rounds every op boundary).
-    ``fuse_interpret=True`` runs those kernels in Pallas interpret mode
-    (CPU tests).
+    * default (both ``None``): f32 storage; the convolutions run at XLA's
+      default precision, which on an NVIDIA GPU may use TF32 tensor cores
+      (about 11 significant bits per product, f32 accumulation).
+    * ``compute_dtype=jnp.bfloat16``: conv inputs/filters in bf16 with f32
+      accumulation (``preferred_element_type``) — the weights ship as fp16
+      constants in the flatbuffer, so bf16's 8-bit mantissa costs only ~2
+      bits of stored precision.  Biases, PRELU and LOGISTIC stay f32;
+      activations between ops stay f32.
+    * ``activation_dtype=jnp.bfloat16`` (the product mode): every feature
+      map is also STORED in bf16 (convs emit bf16; elementwise ops run in
+      bf16), halving activation memory traffic, which dominates these
+      nets.  Accumulation inside each conv is still f32; only inter-op
+      storage rounds.  LOGISTIC and the graph outputs are computed and
+      returned in f32.  Landmark RMS vs the f32 path on the real face
+      graphs is pinned in tests/test_mediapipe_face.py.
     """
     import jax.numpy as jnp
     from jax import lax
@@ -219,18 +113,6 @@ def build_jax(graph: Subgraph, compute_dtype=None,
     def _ad(t):
         return t.astype(ad) if ad is not None else t
 
-    fused_by_start = {}
-    fused_weights = {}
-    if fuse_stages:
-        from ..ops.pallas_meshblocks import pack_stage_weights
-        for s_idx, st in enumerate(_find_residual_stages(graph.operators,
-                                                         graph.tensors)):
-            blocks = [{k: graph.tensors[t].data for k, t in b.items()}
-                      for b in st["blocks"]]
-            wts = pack_stage_weights(graph.tensors[st["a0"]].data, blocks)
-            fused_by_start[st["start"]] = st
-            fused_weights[st["start"]] = wts
-
     # Constants that ops actually read become params; PAD paddings and
     # RESHAPE shapes stay Python-side (they must be static).
     const_idx = set()
@@ -242,11 +124,6 @@ def build_jax(graph: Subgraph, compute_dtype=None,
                 const_idx.add(i)
     params = {str(i): jnp.asarray(graph.tensors[i].data)
               for i in sorted(const_idx)}
-    # Fused-stage weight stacks ride the params pytree too (traced
-    # arguments, never baked XLA literals — ADVICE r1).
-    for start, wts in fused_weights.items():
-        for f_i, arr in enumerate(wts):
-            params[f"_fs{start}_{f_i}"] = arr
 
     in_idx = graph.inputs[0]
     out_idx = tuple(graph.outputs)
@@ -261,26 +138,7 @@ def build_jax(graph: Subgraph, compute_dtype=None,
                 return env[i]
             return params[str(i)]
 
-        op_i = 0
-        while op_i < len(ops):
-            st = fused_by_start.get(op_i)
-            if st is not None:
-                from ..ops.pallas_meshblocks import (StageWeights,
-                                                     residual_stage_pallas)
-                xin = get(st["in_tensor"])           # NHWC (B, H, W, C)
-                B = xin.shape[0]
-                C, H, W = st["C"], st["H"], st["W"]
-                wts = StageWeights(*(params[f"_fs{op_i}_{f_i}"]
-                                     for f_i in range(9)))
-                xcf = jnp.transpose(xin, (0, 3, 1, 2)).reshape(B, C, H * W)
-                y = residual_stage_pallas(xcf, wts, W,
-                                          interpret=fuse_interpret)
-                env[st["out_tensor"]] = jnp.transpose(
-                    y.reshape(B, C, H, W), (0, 2, 3, 1))
-                op_i += st["n_ops"]
-                continue
-            op = ops[op_i]
-            op_i += 1
+        for op in ops:
             o = op.outputs[0]
             if op.op == "CONV_2D":
                 inp, filt, bias = (get(i) for i in op.inputs)
@@ -343,7 +201,7 @@ def build_jax(graph: Subgraph, compute_dtype=None,
                     # batch-1 static output shape, then batch-scale below
                     # like any literal target — a raw jnp.reshape of a
                     # batched input against a (1, -1)-style target would
-                    # fold the batch into the wrong axis (ADVICE r4).
+                    # fold the batch into the wrong axis.
                     shape = tuple(int(s) for s in tensors[o].shape)
                 if int(np.prod(shape)) != xin.size:
                     # Batch-agnostic reshape: the flatbuffer bakes batch-1
@@ -351,7 +209,7 @@ def build_jax(graph: Subgraph, compute_dtype=None,
                     # accepts a flat (B, ...) batch without vmap.  Only a
                     # unit leading dim is provably batch-scalable; anything
                     # else would silently mis-fold the batch — refuse
-                    # loudly instead (ADVICE r4).
+                    # loudly instead.
                     if shape[0] != 1:
                         raise ValueError(
                             f"RESHAPE target {shape} is not batch-agnostic "

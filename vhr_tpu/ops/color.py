@@ -135,8 +135,10 @@ def i420_roi_means(chunk: jnp.ndarray, rois: jnp.ndarray, h: int, w: int
         fr = plane.astype(jnp.float32)
         if pre is not None:
             fr = pre(fr)
-        part = jnp.einsum("thw,tw->th", fr, col_m.astype(jnp.float32))
-        s = jnp.einsum("th,th->t", part, row_m.astype(jnp.float32))
+        part = jnp.einsum("thw,tw->th", fr, col_m.astype(jnp.float32),
+                          precision=jax.lax.Precision.HIGHEST)
+        s = jnp.einsum("th,th->t", part, row_m.astype(jnp.float32),
+                       precision=jax.lax.Precision.HIGHEST)
         n = (jnp.maximum(py2 - py1, 0)
              * jnp.maximum(px2 - px1, 0)).astype(jnp.float32)
         return s, n

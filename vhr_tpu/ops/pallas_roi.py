@@ -1,20 +1,21 @@
-"""Pallas kernel #1: fused per-frame ROI channel means.
+"""Pallas kernel (Triton route): per-frame ROI channel means.
 
 The hot spatial-pooling op of the rPPG pipeline (the reference's
 ``np.mean(roi[:, :, c])`` per frame, ``rppg_VIDEO.py:60-66``): for every
 frame, average each color channel over a per-frame ROI rectangle.
 
-Why a kernel instead of the XLA masked reduction
-(``vhr_tpu.ops.reduce.roi_channel_means``): the ROI is typically a small
-fraction of the frame (a cheek patch inside 1080p), and XLA must stream the
-*entire* frame from HBM to apply the mask.  Here the per-frame ROI boxes are
-scalar-prefetched (``pltpu.PrefetchScalarGridSpec``) so the kernel DMAs only
-the ROI's rows — HBM traffic drops by ~H/roi_h — with double-buffered copies
-overlapping the masked VPU reduction.
+Why a kernel beside the XLA masked reduction
+(``vhr_tpu.ops.reduce.roi_channel_means``): the ROI is a small fraction of
+the frame (a cheek patch inside 1080p), and the masked reduction streams
+the *whole* frame from device memory to apply its mask.  Here one program
+per frame reads its own box from the ROI table and loops over the ROI's
+rows only, with masked loads of ``W*C`` lanes (predicated-off lanes move no
+bytes), so the bytes read drop by roughly ``frame area / ROI area``.
 
-Layout: frames enter as ``(T, H, W*3)`` uint8 (channel-interleaved rows make
-the last dim contiguous lanes); channel separation happens in-register via
-``lane % 3`` masks.
+Layout: frames enter as ``(T, H, W*C)`` uint8 (channel-interleaved rows are
+one contiguous lane axis).  Column chunks start on a multiple of ``C``
+lanes, so lane ``j`` of every chunk holds channel ``j % C`` and one float32
+accumulator serves all chunks; channels split only at the end.
 """
 
 from __future__ import annotations
@@ -24,315 +25,108 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["roi_channel_means_pallas", "roi_channel_means_pallas_batched"]
+__all__ = ["roi_channel_means_pallas"]
+
+_BLOCK_ROWS = 8       # rows per masked 2-D load
+_BLOCK_LANES = 512    # lanes per load (Triton blocks are powers of two)
+# The Triton lowering addresses operands of at most 2**32 bytes with 32-bit
+# offsets, which wrap past 2**31; operands in (2**31, 2**32] bytes are
+# split into frame ranges below 2**31 bytes (above 2**32 it uses 64 bits).
+_I32_SAFE_BYTES = 2 ** 31
+_I64_OFFSET_BYTES = 2 ** 32
 
 
-def _roi_mean_kernel(roi_ref, frames_hbm, out_ref, scratch, sems,
-                     *, row_block: int, height: int, wc: int,
-                     channels: int):
+def _roi_mean_kernel(rois_ref, frame_ref, out_ref, *, height: int,
+                     lanes_total: int, channels: int):
     t = pl.program_id(0)
-    x1 = roi_ref[t, 0]
-    y1 = roi_ref[t, 1]
-    x2 = roi_ref[t, 2]
-    y2 = roi_ref[t, 3]
-    # DMA row offsets must be 8-aligned (Mosaic tiles HBM memrefs (8, 128)):
-    # chunks start at y1 aligned down to 8 and step by row_block (mult of 8).
-    base = (y1 // 8) * 8
-    n_chunks = jnp.maximum(pl.cdiv(y2 - base, jnp.int32(row_block)), 0)
-    max_start = height - row_block
+    x1 = rois_ref[t, 0]
+    y1 = rois_ref[t, 1]
+    x2 = rois_ref[t, 2]
+    y2 = rois_ref[t, 3]
+    # Rows/lanes actually read are clipped to the frame; the pixel count
+    # stays the unclipped box area, the XLA reduction's contract.
+    r_lo = jnp.maximum(y1, 0)
+    r_hi = jnp.minimum(y2, height)
+    l_lo = jnp.maximum(x1, 0) * channels
+    l_hi = jnp.minimum(x2 * channels, lanes_total)
+    step = _BLOCK_LANES - _BLOCK_LANES % channels
+    # int32 throughout (also when x64 is enabled, as in the CPU tests).
+    n_rows = (jnp.maximum(r_hi - r_lo, 0) + (_BLOCK_ROWS - 1)) // _BLOCK_ROWS
+    n_cols = (jnp.maximum(l_hi - l_lo, 0) + (step - 1)) // step
+    rows = jnp.arange(_BLOCK_ROWS, dtype=jnp.int32)
+    lanes = jnp.arange(_BLOCK_LANES, dtype=jnp.int32)
 
-    def chunk_start(i):
-        start = jnp.clip(base + i * row_block, 0, max_start)
-        # All operands are multiples of 8 (base by construction, row_block
-        # and height by the wrapper's contract); tell the compiler.
-        return pl.multiple_of(start, 8)
+    def row_block(i, acc):
+        r = r_lo + i * _BLOCK_ROWS + rows
+        r_ok = r < r_hi
 
-    def get_dma(slot, i):
-        return pltpu.make_async_copy(
-            frames_hbm.at[t, pl.ds(chunk_start(i), row_block), :],
-            scratch.at[slot],
-            sems.at[slot],
-        )
+        def col_block(j, acc):
+            c = l_lo + j * step + lanes
+            ok = r_ok[:, None] & ((c < l_hi) & (lanes < step))[None, :]
+            v = plgpu.load(frame_ref.at[r[:, None], c[None, :]], mask=ok,
+                           other=0)
+            return acc + jnp.sum(v.astype(jnp.int32), axis=0).astype(
+                jnp.float32)
 
-    @pl.when(n_chunks > 0)
-    def _():
-        get_dma(0, 0).start()
+        return jax.lax.fori_loop(0, n_cols, col_block, acc)
 
-    def body(i, u):
-        slot = jax.lax.rem(i, jnp.int32(2))
-
-        @pl.when(i + 1 < n_chunks)
-        def _():
-            get_dma(jax.lax.rem(i + 1, jnp.int32(2)), i + 1).start()
-
-        get_dma(slot, i).wait()
-
-        start = chunk_start(i)
-        row = jax.lax.broadcasted_iota(jnp.int32, (1, row_block), 1) + start
-        # Clip this chunk's rows to [y1, y2) and, for overlapping clamped
-        # chunks near the frame bottom, to rows not already accumulated by
-        # earlier chunks (their unclamped extent ends at base + i*row_block).
-        lo = jnp.maximum(base + i * row_block, y1)
-        r = jnp.where(jnp.logical_and(row >= lo, row < y2), 1.0, 0.0
-                      ).astype(jnp.float32)                       # (1, rb)
-        # Row-masked column sums ride the MXU: (1, rb) @ (rb, wc).
-        vals = scratch[slot].astype(jnp.int32).astype(jnp.float32)
-        return u + jnp.dot(r, vals, preferred_element_type=jnp.float32)
-
-    u0 = jnp.zeros((1, wc), jnp.float32)
-    u = jax.lax.fori_loop(0, n_chunks, body, u0)
-
-    # Split the accumulated per-lane column sums by channel and ROI columns:
-    # lane j holds pixel column j // channels, channel j % channels.
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, wc), 1)
-    col = lane // channels
-    ch = lane - col * channels
-    col_ok = jnp.logical_and(col >= x1, col < x2)
-
-    count = (jnp.maximum(y2 - y1, 0) * jnp.maximum(x2 - x1, 0)).astype(jnp.float32)
-    denom = jnp.maximum(count, 1.0)
-    for c in range(channels):
-        sel = jnp.logical_and(col_ok, ch == c)
-        out_ref[t, c] = jnp.sum(jnp.where(sel, u, 0.0)) / denom
-    out_ref[t, channels] = count
+    acc = jax.lax.fori_loop(0, n_rows, row_block,
+                            jnp.zeros((_BLOCK_LANES,), jnp.float32))
+    count = (jnp.maximum(y2 - y1, 0)
+             * jnp.maximum(x2 - x1, 0)).astype(jnp.float32)
+    width = out_ref.shape[-1]                    # channels + 1, padded to 2^k
+    k = jnp.arange(width, dtype=jnp.int32)
+    sums = jnp.sum(jnp.where((lanes % channels)[None, :] == k[:, None],
+                             acc[None, :], 0.0), axis=1)
+    out_ref[...] = jnp.where(k < channels, sums / jnp.maximum(count, 1.0),
+                             count)
 
 
 def roi_channel_means_pallas(frames: jnp.ndarray, rois: jnp.ndarray,
-                             row_block: int = 128,
-                             interpret: bool = False,
-                             channels: int = 3
+                             channels: int = 3, interpret: bool = False
                              ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """ROI channel means via the Pallas kernel.
+    """ROI channel means via the Triton-route Pallas kernel.
 
     Args:
-      frames: ``(T, H, W, C)`` uint8, or pre-flattened ``(T, H, W*C)``
-        (``channels`` gives the interleave; avoids the in-jit reshape copy
-        at the custom-call boundary — see
-        :func:`roi_channel_means_pallas_batched`).
+      frames: ``(T, H, W, C)`` uint8, or pre-flattened ``(T, H, W*C)`` with
+        ``channels`` giving the interleave.
       rois: ``(T, 4)`` int32 ``[x1, y1, x2, y2]`` (exclusive ends).
-      row_block: rows per DMA chunk (clamped to H).
-      interpret: run in interpreter mode (for CPU tests).
+      interpret: run the Pallas interpreter (CPU tests).
 
     Returns:
-      ``(means, count)`` matching
+      ``(means (T, C), count (T,))`` matching
       :func:`vhr_tpu.ops.reduce.roi_channel_means`.
     """
-    if frames.ndim == 3:
+    if frames.ndim == 4:
+        T, H, W, C = frames.shape
+        frames = frames.reshape(T, H, W * C)
+    else:
         T, H, WC = frames.shape
         C = channels
-        W = WC // C
-        flat = frames
-    else:
-        T, H, W, C = frames.shape
-        flat = None
-    if H % 8 != 0 and not interpret:
-        # Mosaic DMA needs 8-aligned row extents; odd heights take the XLA
-        # masked-reduction path instead (callers can pre-pad to avoid this).
-        from .reduce import roi_channel_means
-        if flat is not None:
-            frames = frames.reshape(T, H, W, C)
-        return roi_channel_means(frames, rois)
-    rb = max(8, min(row_block, H) // 8 * 8)
-    if flat is None:
-        flat = frames.reshape(T, H, W * C)
-    # DMA slice widths must be 128-aligned: pad the flattened row.  HD widths
-    # (1920/1280 x3) are already aligned — the pad copy only happens for odd
-    # resolutions; IO layers should allocate pre-padded rows to avoid it.
-    wc = -(-(W * C) // 128) * 128
-    if wc != W * C:
-        flat = jnp.pad(flat, ((0, 0), (0, 0), (0, wc - W * C)))
-
-    kernel = functools.partial(_roi_mean_kernel, row_block=rb, height=H,
-                               wc=wc, channels=C)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
+    if _I32_SAFE_BYTES < frames.size <= _I64_OFFSET_BYTES:
+        step = _I32_SAFE_BYTES // (frames.size // T)
+        parts = [roi_channel_means_pallas(frames[s:s + step],
+                                          rois[s:s + step], C, interpret)
+                 for s in range(0, T, step)]
+        return (jnp.concatenate([m for m, _ in parts]),
+                jnp.concatenate([c for _, c in parts]))
+    width = pl.next_power_of_2(C + 1)
+    kernel = functools.partial(_roi_mean_kernel, height=H,
+                               lanes_total=frames.shape[2], channels=C)
+    out = pl.pallas_call(
+        kernel,
         grid=(T,),
-        # Keep frames in HBM (untiled): the kernel DMAs dynamically-offset row
-        # ranges, which tiled VMEM sources cannot express.
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)],
-        # Tiny per-frame scalar results live whole in SMEM (VMEM tiling would
-        # require 8x128-aligned blocks); each grid step writes its own row.
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, rb, wc), jnp.uint8),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((T, C + 1), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY),
+                  pl.BlockSpec((None,) + frames.shape[1:],
+                               lambda t: (t, 0, 0))],
+        out_specs=pl.BlockSpec((None, width), lambda t: (t, 0)),
+        out_shape=jax.ShapeDtypeStruct((T, width), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        backend="triton",
         interpret=interpret,
-    )(rois.astype(jnp.int32), flat)
-
+        name="roi_channel_means",
+    )(rois.astype(jnp.int32), frames)
     return out[:, :C], out[:, C]
-
-
-def _roi_mean_batched_kernel(roi_ref, frames_hbm, out_ref, scratch, sems,
-                             *, row_block: int, height: int, wc: int,
-                             channels: int, batch: int):
-    """``batch`` frames per grid step, one (batch, rb, wc) DMA per chunk.
-
-    Tracked-face ROIs barely move between adjacent frames, so the union of
-    the batch's row spans is ~one ROI tall: a single slab DMA serves every
-    frame in the batch, amortizing both the per-grid-step entry cost and the
-    per-DMA sync cost ~batch-fold (measured on v5e @1080p cheek ROI:
-    per-frame kernel 53 us/frame -> batched 14.6 us/frame on flat input;
-    the XLA masked full-frame reduction is 27 us/frame).
-    """
-    g = pl.program_id(0)
-    t0 = g * batch
-    B = batch
-
-    y1s = [roi_ref[t0 + b, 1] for b in range(B)]
-    y2s = [roi_ref[t0 + b, 3] for b in range(B)]
-    # Degenerate (invalid, y2 <= y1) boxes must not widen the union span.
-    lo_all = [jnp.where(y2 > y1, y1, jnp.int32(height)) for y1, y2
-              in zip(y1s, y2s)]
-    hi_all = [jnp.where(y2 > y1, y2, jnp.int32(0)) for y1, y2
-              in zip(y1s, y2s)]
-    lo = functools.reduce(jnp.minimum, lo_all)
-    hi = functools.reduce(jnp.maximum, hi_all)
-    base = (lo // 8) * 8
-    n_chunks = jnp.maximum(pl.cdiv(hi - base, jnp.int32(row_block)), 0)
-    max_start = height - row_block
-
-    def chunk_start(i):
-        start = jnp.clip(base + i * row_block, 0, max_start)
-        return pl.multiple_of(start, 8)
-
-    def get_dma(slot, i):
-        return pltpu.make_async_copy(
-            frames_hbm.at[pl.ds(t0, B), pl.ds(chunk_start(i), row_block), :],
-            scratch.at[slot],
-            sems.at[slot],
-        )
-
-    @pl.when(n_chunks > 0)
-    def _():
-        get_dma(0, 0).start()
-
-    def body(i, us):
-        slot = jax.lax.rem(i, jnp.int32(2))
-
-        @pl.when(i + 1 < n_chunks)
-        def _():
-            get_dma(jax.lax.rem(i + 1, jnp.int32(2)), i + 1).start()
-
-        get_dma(slot, i).wait()
-
-        start = chunk_start(i)
-        row = jax.lax.broadcasted_iota(jnp.int32, (1, row_block), 1) + start
-        clip_lo = jnp.maximum(base + i * row_block, 0)
-        out = []
-        for b in range(B):
-            # Rows inside THIS frame's [y1, y2), minus rows a clamped
-            # overlapping chunk already accumulated.
-            lo_b = jnp.maximum(clip_lo, y1s[b])
-            r = jnp.where(jnp.logical_and(row >= lo_b, row < y2s[b]),
-                          1.0, 0.0).astype(jnp.float32)
-            vals = scratch[slot, b].astype(jnp.int32).astype(jnp.float32)
-            out.append(us[b] + jnp.dot(r, vals,
-                                       preferred_element_type=jnp.float32))
-        return tuple(out)
-
-    u0 = tuple(jnp.zeros((1, wc), jnp.float32) for _ in range(B))
-    us = jax.lax.fori_loop(0, n_chunks, body, u0)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, wc), 1)
-    col = lane // channels
-    ch = lane - col * channels
-    for b in range(B):
-        x1 = roi_ref[t0 + b, 0]
-        x2 = roi_ref[t0 + b, 2]
-        col_ok = jnp.logical_and(col >= x1, col < x2)
-        count = (jnp.maximum(y2s[b] - y1s[b], 0)
-                 * jnp.maximum(x2 - x1, 0)).astype(jnp.float32)
-        denom = jnp.maximum(count, 1.0)
-        for c in range(channels):
-            sel = jnp.logical_and(col_ok, ch == c)
-            out_ref[t0 + b, c] = jnp.sum(jnp.where(sel, us[b], 0.0)) / denom
-        out_ref[t0 + b, channels] = count
-
-
-def roi_channel_means_pallas_batched(frames: jnp.ndarray, rois: jnp.ndarray,
-                                     batch: int = 8, row_block: int = 64,
-                                     interpret: bool = False,
-                                     channels: int = 3
-                                     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched-grid variant of :func:`roi_channel_means_pallas`.
-
-    ``batch`` frames share each grid step and each row-chunk DMA (a
-    ``(batch, row_block, W*C)`` slab over the union of their ROI row
-    spans).  Best for tracked faces, where consecutive ROIs overlap almost
-    entirely; worst case (holdover jump inside a batch) the union span
-    grows toward the full frame, degrading to the XLA path's traffic.
-    Frames beyond the last full batch take the per-frame kernel.
-
-    **Layout matters more than the kernel** (measured, 1080p cheek ROI,
-    v5e): the kernel itself runs at 14.6 us/frame vs 27 us for the XLA
-    masked reduction — but feeding it ``(T, H, W, C)`` costs ~33 us/frame
-    extra, because the in-jit ``reshape`` into the custom call's
-    ``(T, H, W*C)`` operand materializes a full HBM copy (XLA's
-    reshape-is-bitcast folding does not cross ``custom_call`` layout
-    constraints).  Pass ``frames`` already flattened to ``(T, H, W*C)``
-    (``channels`` tells the kernel the interleave; the native framestore
-    already stages rows 128-padded and contiguous) to get the 2x win;
-    4D input is accepted but only breaks even with XLA.
-    """
-    if frames.ndim == 3:
-        T, H, WC = frames.shape
-        C = channels
-        assert WC % C == 0
-        W = WC // C
-        flat = frames
-    else:
-        T, H, W, C = frames.shape
-        flat = None
-    if (H % 8 != 0 and not interpret) or T < batch:
-        return roi_channel_means_pallas(frames, rois, interpret=interpret,
-                                        channels=channels)
-    rb = max(8, min(row_block, H) // 8 * 8)
-    body_T = (T // batch) * batch
-
-    if flat is None:
-        flat = frames.reshape(T, H, W * C)
-    wc = -(-(W * C) // 128) * 128
-    if wc != W * C:
-        flat = jnp.pad(flat, ((0, 0), (0, 0), (0, wc - W * C)))
-
-    kernel = functools.partial(_roi_mean_batched_kernel, row_block=rb,
-                               height=H, wc=wc, channels=C, batch=batch)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(body_T // batch,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, batch, rb, wc), jnp.uint8),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((body_T, C + 1), jnp.float32),
-        interpret=interpret,
-    )(rois[:body_T].astype(jnp.int32), flat[:body_T])
-
-    means, count = out[:, :C], out[:, C]
-    if body_T != T:
-        m2, c2 = roi_channel_means_pallas(frames[body_T:], rois[body_T:],
-                                          interpret=interpret,
-                                          channels=channels)
-        means = jnp.concatenate([means, m2])
-        count = jnp.concatenate([count, c2])
-    return means, count

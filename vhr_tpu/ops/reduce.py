@@ -29,6 +29,10 @@ __all__ = [
     "video_stats",
 ]
 
+# Pixel sums reach ~5e5 per partial row sum; a TF32 contraction (about 11
+# significant bits) would round them, so every contraction here is exact f32.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def roi_channel_means(frames: jnp.ndarray, rois: jnp.ndarray
                       ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -54,8 +58,10 @@ def roi_channel_means(frames: jnp.ndarray, rois: jnp.ndarray
     fr = frames.astype(jnp.float32)
     # Reduce W first under the column mask, then H under the row mask; XLA
     # fuses the mask broadcast into the reductions (single pass over HBM).
-    partial = jnp.einsum("thwc,tw->thc", fr, col_m.astype(jnp.float32))
-    sums = jnp.einsum("thc,th->tc", partial, row_m.astype(jnp.float32))
+    partial = jnp.einsum("thwc,tw->thc", fr, col_m.astype(jnp.float32),
+                         precision=_HIGHEST)
+    sums = jnp.einsum("thc,th->tc", partial, row_m.astype(jnp.float32),
+                      precision=_HIGHEST)
 
     count = (jnp.maximum(y2 - y1, 0) * jnp.maximum(x2 - x1, 0)).astype(jnp.float32)
     means = sums / jnp.maximum(count, 1.0)[:, None]
@@ -89,8 +95,10 @@ def roi_channel_means_multi(frames: jnp.ndarray, rois: jnp.ndarray
              & (cols[:, None, :] < x2[..., None]))          # (T, K, W)
 
     fr = frames.astype(jnp.float32)
-    partial = jnp.einsum("thwc,tkw->tkhc", fr, col_m.astype(jnp.float32))
-    sums = jnp.einsum("tkhc,tkh->tkc", partial, row_m.astype(jnp.float32))
+    partial = jnp.einsum("thwc,tkw->tkhc", fr, col_m.astype(jnp.float32),
+                         precision=_HIGHEST)
+    sums = jnp.einsum("tkhc,tkh->tkc", partial, row_m.astype(jnp.float32),
+                      precision=_HIGHEST)
 
     count = (jnp.maximum(y2 - y1, 0)
              * jnp.maximum(x2 - x1, 0)).astype(jnp.float32)  # (T, K)

@@ -1,10 +1,10 @@
-"""Stream-parallel batched monitoring: N subjects across a chip mesh.
+"""Stream-parallel batched monitoring: N subjects across a device mesh.
 
 The BASELINE 64-concurrent-720p-streams configuration: frames arrive as
 ``(streams, T, H, W, 3)``; each stream runs the full rPPG pipeline
 independently, so the natural layout shards the ``streams`` axis across
-chips via ``shard_map`` — zero collectives in steady state, ICI only at
-input distribution.  Contrast with the reference, which can only process one
+devices via ``shard_map`` — zero collectives in steady state, device links
+used only at input distribution.  Contrast with the reference, which can only process one
 video per Python process (``analysis/main.py`` loops serially).
 """
 
@@ -66,8 +66,7 @@ def _single_stream(frames, detector, fps: float, cfg: PipelineConfig,
         rois = vroi.cheek_roi(track.box, cfg.roi, W, H)
         rois = jnp.where(track.valid[:, None], rois, 0)
         means, _ = vreduce.roi_channel_means(fr, rois)
-        # Forward-fill over dropout frames before windowing so the XLA and
-        # fused paths are numerically comparable (and match the offline
+        # Forward-fill over dropout frames before windowing (the offline
         # measure_green_avg convention) — raw zeros on invalid frames would
         # otherwise leak into the FFT windows.
         green = _ffill(means[:, cfg.channel], track.valid)
@@ -89,87 +88,35 @@ def _ffill(x, ok):
     return forward_fill(x, ok, init="zeros")
 
 
-def _single_stream_fused(frames, fps: float, cfg: PipelineConfig,
-                         det: skin_detector.SkinDetectorConfig,
-                         detect_row_pool: int, gate_margin,
-                         interpret: bool):
-    """Fused-kernel shard body: one ``(S_local*T,)`` kernel launch covers
-    every stream in the shard (``seq_len=T`` resets tracking at stream
-    boundaries), replacing the detector pass + masked ROI reduction with a
-    single HBM read per frame.  ``det.downsample`` is ignored here —
-    ``detect_row_pool`` is the fused kernel's resolution knob."""
-    from ..ops.pallas_fused import fused_detect_roi_pallas
-
-    S, T, H, W, _ = frames.shape
-    res = fused_detect_roi_pallas(
-        frames.reshape(S * T, H, W, 3), det=det, roi=cfg.roi, seq_len=T,
-        detect_row_pool=detect_row_pool, gate_margin=gate_margin,
-        interpret=interpret)
-    means = res.means.reshape(S, T, 3)
-    valid = res.roi_valid.reshape(S, T)
-    green = jax.vmap(_ffill)(means[..., cfg.channel], valid)
-    rolling = jax.vmap(functools.partial(
-        vwin.rolling_bpm_fft, fps=fps, band=cfg.band,
-        window_len=cfg.window_len(fps),
-        acquisition_len=cfg.acquisition_len(fps)))(green)
-    ok = jnp.logical_and(rolling.valid, valid)
-    return rolling.bpm, ok, green
-
-
 def multistream_green_bpm(frames: jnp.ndarray, fps: float,
                           mesh: Mesh,
                           cfg: PipelineConfig = PipelineConfig(),
                           det: skin_detector.SkinDetectorConfig = None,
-                          use_fused: bool = False,
-                          detect_row_pool: int = 1,
-                          gate_margin=None,
                           detector=None) -> MultiStreamResult:
     """Run the green-channel pipeline for ``(streams, T, H, W, 3)`` frames
     sharded over the mesh's ``stream`` axis.
 
-    Each chip independently processes ``streams / n_chips`` subjects — the
-    embarrassingly-parallel layout; ``shard_map`` keeps XLA from gathering
-    the video tensor anywhere.  ``det`` tunes detection (e.g.
+    Each device independently processes ``streams / n_devices`` subjects —
+    the embarrassingly-parallel layout; ``shard_map`` keeps XLA from
+    gathering the video tensor anywhere.  ``det`` tunes detection (e.g.
     ``downsample=4`` strided sampling for many-stream 720p monitoring).
-
-    ``use_fused=True`` runs each shard through the single-HBM-pass Pallas
-    kernel instead (one launch per shard covering all its streams via
-    ``seq_len``); ``detect_row_pool`` / ``gate_margin`` are its resolution
-    and gating knobs (``vhr_tpu.ops.pallas_fused``).  Requires
-    ``H % 8 == 0`` and ``W*3 % 128 == 0``.
 
     ``detector`` swaps the per-stream face stage for any pipeline detector
     callable (e.g. :func:`vhr_tpu.models.mediapipe_face
     .make_mediapipe_detector` — the production weights then run
-    data-parallel across the mesh, weights replicated per chip).
+    data-parallel across the mesh, weights replicated per device).
     """
     det = det or skin_detector.SkinDetectorConfig()
     spec = P("stream")
-    if use_fused:
-        if detector is not None:
-            raise ValueError("use_fused=True embeds its own detection; "
-                             "pass detector=None")
-        fn = functools.partial(
-            _single_stream_fused, fps=fps, cfg=cfg, det=det,
-            detect_row_pool=detect_row_pool, gate_margin=gate_margin,
-            interpret=jax.default_backend() != "tpu")
-        mapped = shard_map(
-            fn, mesh=mesh,
-            in_specs=(spec,),
-            out_specs=(spec, spec, spec),
-            check_vma=False,
-        )
-        bpm, valid, green = mapped(frames)
-    else:
-        fn = functools.partial(_single_stream, fps=fps, cfg=cfg, det=det)
-        # detector weights (a Partial pytree, e.g. the MediaPipe port)
-        # enter as replicated shard_map inputs — traced arguments, never
-        # baked XLA literals.
-        mapped = shard_map(
-            fn, mesh=mesh,
-            in_specs=(spec, P()),
-            out_specs=(spec, spec, spec),
-            check_vma=False,
-        )
-        bpm, valid, green = mapped(frames, detector)
+    fn = functools.partial(_single_stream, fps=fps, cfg=cfg, det=det)
+    # detector weights (a Partial pytree, e.g. the MediaPipe port) enter as
+    # replicated shard_map inputs — traced arguments, never baked XLA
+    # literals.
+    mapped = shard_map(
+        fn, mesh=mesh,
+        in_specs=(spec, P()),
+        out_specs=(spec, spec, spec),
+        check_vma=False,
+    )
+    bpm, valid, green = mapped(frames, detector)
     return MultiStreamResult(bpm=bpm, valid=valid, green=green)

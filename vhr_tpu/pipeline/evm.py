@@ -3,10 +3,10 @@ reference's dead stub.
 
 The reference planned but never implemented this path (broken ``bgr2yiq``
 stub at ``rppg_VIDEO.py:120-124``, README mention).  Classic Wu et al. color
-magnification, built TPU-first:
+magnification as one array program:
 
-  uint8 BGR -> YIQ -> Gaussian pyramid (separable binomial convs, stride 2,
-  MXU-friendly) -> ideal temporal bandpass on the coarsest level (one
+  uint8 BGR -> YIQ -> Gaussian pyramid (separable binomial convs, stride
+  2) -> ideal temporal bandpass on the coarsest level (one
   ``rfft``/``irfft`` over the whole time axis — no per-frame IIR state) ->
   amplify (chroma-attenuated) -> upsample -> add -> uint8 BGR.
 
@@ -77,19 +77,10 @@ def temporal_ideal_bandpass(x: jnp.ndarray, fps: float, band: HRBand
     return jnp.fft.irfft(X, n=T, axis=0).astype(x.dtype)
 
 
-@functools.partial(jax.jit, static_argnames=("fps", "cfg", "use_pallas",
-                                              "interpret"))
+@functools.partial(jax.jit, static_argnames=("fps", "cfg"))
 def magnify(frames: jnp.ndarray, fps: float,
-            cfg: EVMConfig = EVMConfig(),
-            use_pallas: bool = False,
-            interpret: bool = False) -> jnp.ndarray:
+            cfg: EVMConfig = EVMConfig()) -> jnp.ndarray:
     """Amplify subtle color oscillations in the EVM band.
-
-    With ``use_pallas`` (needs ``W % 128 == 0``) both full-resolution stages
-    run as fused Pallas kernels — pyramid front-end (``ops.pallas_evm``) and
-    upsample-add-reconstruct back-end (``ops.pallas_evm_recon``) — so no
-    full-res float tensor ever hits HBM (~108 MB -> ~24 MB traffic per 1080p
-    frame incl. layout transposes).
 
     Args:
       frames: ``(T, H, W, 3)`` uint8 BGR.
@@ -101,18 +92,6 @@ def magnify(frames: jnp.ndarray, fps: float,
                          cfg.amplification * cfg.attenuate_chroma,
                          cfg.amplification * cfg.attenuate_chroma],
                         jnp.float32)
-    if use_pallas and W % 128 == 0 and cfg.pyramid_levels >= 1:
-        from ..ops.pallas_evm import to_planar, yiq_pyrdown_pallas
-        from ..ops.pallas_evm_recon import evm_reconstruct_pallas
-
-        low = jnp.moveaxis(yiq_pyrdown_pallas(frames, interpret=interpret),
-                           1, -1)                       # (T, H/2, W/2, 3)
-        low = gaussian_pyramid_level(low, cfg.pyramid_levels - 1)
-        band = temporal_ideal_bandpass(low, fps, cfg.band) * gains
-        out = evm_reconstruct_pallas(to_planar(frames),
-                                     jnp.moveaxis(band, -1, 1),
-                                     interpret=interpret)
-        return jnp.transpose(out, (0, 2, 3, 1))
     yiq = color.bgr_u8_to_yiq(frames)
     low = gaussian_pyramid_level(yiq, cfg.pyramid_levels)
     band = temporal_ideal_bandpass(low, fps, cfg.band)
@@ -122,23 +101,12 @@ def magnify(frames: jnp.ndarray, fps: float,
 
 
 def magnified_pulse(frames: jnp.ndarray, fps: float, band: HRBand,
-                    levels: int = 4, use_pallas: bool = False) -> jnp.ndarray:
+                    levels: int = 4) -> jnp.ndarray:
     """The EVM analysis signal: spatial mean of the band-passed coarse level's
     luminance+chroma per frame, shape ``(T, 3)`` — a pulse trace that needs
     no face detection (whole-frame Eulerian pooling).
-
-    With ``use_pallas`` the first pyramid level runs as the fused Pallas
-    front-end (``vhr_tpu.ops.pallas_evm``): 4.1x faster than the XLA path on
-    v5e at 1080p with per-rep input materialization (never materializes
-    full-res float YIQ; ``bench.py bench_evm``, BENCH_DETAIL.json evm row).
     """
-    W = frames.shape[2]
-    if use_pallas and W % 128 == 0 and levels >= 1:
-        from ..ops.pallas_evm import yiq_pyrdown_pallas
-        low = jnp.moveaxis(yiq_pyrdown_pallas(frames), 1, -1)
-        low = gaussian_pyramid_level(low, levels - 1)
-    else:
-        yiq = color.bgr_u8_to_yiq(frames)
-        low = gaussian_pyramid_level(yiq, levels)
+    yiq = color.bgr_u8_to_yiq(frames)
+    low = gaussian_pyramid_level(yiq, levels)
     bp = temporal_ideal_bandpass(low, fps, band)
     return jnp.mean(bp, axis=(1, 2))

@@ -2,13 +2,13 @@
 
 The reference's live app serves exactly one webcam per Python process —
 ``main()`` owns the camera, the globals, and the matplotlib window
-(``/root/reference/rppg_LIVESTREAM.py:256-366``).  Deployed at scale, a
-TPU chip should instead multiplex many independent live clients: this
+(``/root/reference/rppg_LIVESTREAM.py:256-366``).  Deployed at scale, one
+accelerator should instead multiplex many independent live clients: this
 module pools ``n_slots`` subjects, carries their :class:`~vhr_tpu
 .pipeline.live.LiveState` as ONE batched pytree, and advances every
 active slot with ONE device dispatch per server tick.
 
-TPU-native design points:
+Design points:
 
 - **One dispatch serves all clients.**  Frames from active clients stack
   into an ``(S, H, W, 3)`` batch; detection runs once over the flat
@@ -18,8 +18,8 @@ TPU-native design points:
 - **Slots are masks, not shapes.**  Attach/detach/missed-frame are all an
   ``active`` mask over a fixed ``(S, ...)`` state: one compile, reused
   for every population of clients (SURVEY §7 "dynamic-shape poison").
-- **Outputs cross back as one packed tensor** — a single fetch per tick,
-  the high-latency-link rule the live pipeline established
+- **Outputs cross back as one packed tensor** — a single device->host
+  fetch per tick, as in the live pipeline
   (``pipeline/live.py::LivePipeline``).
 
 The front-end (:func:`serve_forever`, CLI in ``apps/serve_bpm.py``)
@@ -84,9 +84,8 @@ def _finish_batched(state: LiveState, cfg: LiveConfig, sos, S: int,
                     new_last: jnp.ndarray, new_budget: jnp.ndarray,
                     new_has: jnp.ndarray
                     ) -> Tuple[LiveState, jnp.ndarray]:
-    """Common tail of the batched tick (both the XLA-detector and the
-    fused-kernel paths): per-slot streaming SOS push, masked ring/Welch
-    writes, method BPM, and state/output assembly.  ``face_valid`` must
+    """Common tail of the batched tick: per-slot streaming SOS push,
+    masked ring/Welch writes, method BPM, and state/output assembly.  ``face_valid`` must
     already be masked by ``active`` (inactive slots advance nothing)."""
     filt, zi = jax.vmap(
         lambda z, g: filters.sos_stream_push(sos, z, g))(state.zi, green)
@@ -149,40 +148,6 @@ def _step_batched_impl(state: LiveState, frames: jnp.ndarray,
     state = jax.tree.map(
         lambda x: jnp.where(reset.reshape((S,) + (1,) * (x.ndim - 1)),
                             jnp.zeros_like(x), x), state)
-
-    if cfg.use_fused:
-        # Slot-batched fused kernel: detection + cheek-ROI means in ONE
-        # streaming HBM read of the whole (S, H, W, 3) batch — versus the
-        # XLA tick's detector pass + ROI-mean pass.  The tracking carry IS
-        # the LiveState holdover fields (a reset slot's zeroed row is a
-        # fresh carry), the cadence phase is each slot's own frame counter
-        # (slots attach at different times), and the ROI comes from the box
-        # tracked on PREVIOUS frames (one-frame lag — the same semantics as
-        # the single-stream fused live step, pinned equal per slot in
-        # tests/test_serving.py).
-        from .ops.pallas_fused import fused_detect_roi_slots
-
-        carry = jnp.concatenate(
-            [state.last_box.astype(jnp.int32),
-             state.hold_budget.astype(jnp.int32)[:, None],
-             state.has_last.astype(jnp.int32)[:, None]], axis=1)   # (S, 6)
-        res, carry_out = fused_detect_roi_slots(
-            frames, carry, phase=state.frame_idx, roi=cfg.roi,
-            detect_every=cfg.detect_every,
-            detect_row_pool=cfg.detect_row_pool,
-            gate_margin=cfg.gate_margin,
-            interpret=jax.default_backend() != "tpu")
-        # Inactive slots hold ALL state — the kernel still scanned their
-        # (stale) frame, so restore their carry and mask their outputs.
-        carry_out = jnp.where(active[:, None], carry_out, carry)
-        means = res.means                                          # (S, 3)
-        green = means[:, 1]
-        face_valid = jnp.logical_and(res.roi_valid, active)
-        new_last = carry_out[:, 0:4]
-        new_budget = carry_out[:, 4]
-        new_has = carry_out[:, 5] > 0
-        return _finish_batched(state, cfg, sos, S, active, means, green,
-                               face_valid, new_last, new_budget, new_has)
 
     def run_det(fr):
         if det_fn is None:
@@ -316,7 +281,7 @@ _unpack = unpack_output
 
 
 class BpmServer:
-    """S-slot live BPM pool: one chip, many monitored subjects.
+    """S-slot live BPM pool: one device, many monitored subjects.
 
     >>> srv = BpmServer(LiveConfig(fps=30.0), n_slots=8)
     >>> a, b = srv.attach(), srv.attach()
@@ -336,7 +301,7 @@ class BpmServer:
                  donate: bool = True, mesh=None, slot_axis: str = "slot",
                  k_faces: int = 1):
         """``mesh``: shard the slot axis over a ``jax.sharding.Mesh`` —
-        multi-chip serving with zero steady-state collectives (slots are
+        multi-device serving with zero steady-state collectives (slots are
         independent; detection/DSP partition along the batch).  ``n_slots``
         must divide evenly across the mesh.
 
@@ -345,18 +310,6 @@ class BpmServer:
         ``rppg_LIVESTREAM.py:308,339``); outputs gain a leading ``(K,)``
         axis per slot and ``detector`` must follow the multi-face contract
         (``frames -> (boxes (S, K, 4), valid (S, K))``)."""
-        if cfg.use_fused:
-            # Slot-batched fused path (ops.pallas_fused.fused_detect_roi_
-            # slots): same constraints as the single-stream fused live step.
-            if detector is not None:
-                raise ValueError("use_fused runs the in-kernel skin "
-                                 "detector; pass detector=None")
-            if cfg.roi_site != "cheek":
-                raise ValueError("the fused kernel bakes cheek ROI geometry;"
-                                 " roi_site='forehead' needs use_fused=False")
-            if k_faces != 1:
-                raise ValueError("use_fused is single-face per slot; "
-                                 "k_faces>1 needs use_fused=False")
         if transfer not in ("bgr", "i420"):
             raise ValueError(f"transfer must be 'bgr' or 'i420', "
                              f"got {transfer!r}")
@@ -451,7 +404,7 @@ class BpmServer:
     # Snapshot schema: v2 keys leaves by state-field NAME (schema-change
     # safe — a restore into a state with new fields zero-fills them); v1
     # (pre-r4, implicit) used positional leaf{i} keys, which silently
-    # misalign when fields are added (ring_bgr, ADVICE r4).
+    # misalign when fields are added (e.g. ring_bgr).
     _SNAP_SCHEMA = 2
 
     def snapshot(self) -> dict:
@@ -672,7 +625,7 @@ class _BpmTCPServer(socketserver.ThreadingTCPServer):
 
         The loop is 1-deep PIPELINED (the ``LivePipeline`` overlap, lifted
         to the pool): tick N+1 dispatches before tick N's packed result is
-        fetched, so the result round trip (PCIe/grpc/relay) overlaps the
+        fetched, so the result's device->host round trip overlaps the
         next tick's host work.  Answer lag is at most one tick; when no new
         frames arrive the pending tick flushes immediately, so idle-pool
         latency is unchanged."""
@@ -901,7 +854,7 @@ class _BpmHandler(socketserver.StreamRequestHandler):
         if srv.auth_token is not None and not hmac.compare_digest(
                 str(hello.get("token", "")), srv.auth_token):
             # constant-time compare: the token is a shared secret arriving
-            # over the network (ADVICE r4)
+            # over the network
             raise ValueError("bad or missing auth token")
         transfer = hello.get("transfer", "bgr")
         if not hello.get("stats") and transfer != srv.pool.transfer:

@@ -1,12 +1,13 @@
 """Real-face validation corpus from in-image photo assets.
 
 The reference validates on private real videos with ground-truth CSVs
-(``/root/reference/analysis/utils/video_io.py:60-77`` reads them); this
-image ships no real face *media*, but matplotlib bundles a real photograph
-(``mpl-data/sample_data/grace_hopper.jpg`` — a 512x600 frontal portrait)
-that the ported production detector (:mod:`vhr_tpu.models.mediapipe_face`)
-finds with high confidence.  This module turns that photo into a
-*measurable* real-face corpus:
+(``/root/reference/analysis/utils/video_io.py:60-77`` reads them).  This
+repository carries one real photograph instead: matplotlib's public-domain
+sample portrait (``mpl-data/sample_data/grace_hopper.jpg``, a 512x600
+frontal portrait), decoded once to ``checkpoints/real_face.npy`` (uint8
+BGR) so that loading it needs numpy only.  The ported production detector
+(:mod:`vhr_tpu.models.mediapipe_face`) finds it with high confidence.
+This module turns that photo into a *measurable* real-face corpus:
 
 * :func:`real_face_image` — the raw BGR photo (``None`` when the asset is
   absent, so consumers can skip gracefully).
@@ -34,11 +35,10 @@ import numpy as np
 __all__ = ["real_face_image", "REAL_FACE_BOX", "RealFaceClip",
            "synthesize_real_face_clip"]
 
-# Candidate locations of the bundled portrait, most specific first.
-_ASSET_CANDIDATES = (
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 "..", "checkpoints", "real_face.jpg"),
-)
+# The committed decode of the portrait (uint8 BGR, numpy only).
+_ASSET_NPY = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "checkpoints", "real_face.npy")
 
 # Production-weight (mediapipe port) landmark-min/max box on the unscaled
 # photo — the oracle for real-face detector IoU (measured, jax+numpy paths
@@ -57,16 +57,16 @@ def _matplotlib_asset() -> Optional[str]:
 
 
 def real_face_image() -> Optional[np.ndarray]:
-    """The bundled real portrait as a BGR uint8 array, or ``None``."""
-    import cv2
-    for cand in _ASSET_CANDIDATES:
-        if os.path.exists(cand):
-            img = cv2.imread(cand)
-            if img is not None:
-                return img
+    """The bundled real portrait as a BGR uint8 array, or ``None``.
+
+    Reads the committed ``checkpoints/real_face.npy``; falls back to
+    decoding matplotlib's copy with cv2 when that file is absent."""
+    if os.path.exists(_ASSET_NPY):
+        return np.load(_ASSET_NPY)
     path = _matplotlib_asset()
     if path is None:
         return None
+    import cv2
     return cv2.imread(path)
 
 
@@ -115,15 +115,17 @@ def synthesize_real_face_clip(
       top (hand/hair-over-forehead style) — exercises detector holdover
       and recovery on real pixels.
 
+    With ``motion_px=0`` and ``scale=1`` the clip is built with numpy
+    alone; motion and rescaling use cv2.
+
     Raises ``RuntimeError`` when no real-photo asset is available.
     """
-    import cv2
-
     img = real_face_image()
     if img is None:
         raise RuntimeError("no bundled real-face asset in this environment")
     box = np.asarray(REAL_FACE_BOX, np.float64)
     if scale != 1.0:
+        import cv2
         img = cv2.resize(img, (int(round(img.shape[1] * scale)),
                                int(round(img.shape[0] * scale))),
                          interpolation=cv2.INTER_AREA)
@@ -157,9 +159,11 @@ def synthesize_real_face_clip(
         f = base.copy()
         f[..., 1] += pulse[i] * mask
         f *= flick[i]
-        m = np.float32([[1, 0, dx[i]], [0, 1, dy[i]]])
-        f = cv2.warpAffine(f, m, (W, H), flags=cv2.INTER_LINEAR,
-                           borderMode=cv2.BORDER_REPLICATE)
+        if motion_px != 0.0:
+            import cv2
+            m = np.float32([[1, 0, dx[i]], [0, 1, dy[i]]])
+            f = cv2.warpAffine(f, m, (W, H), flags=cv2.INTER_LINEAR,
+                               borderMode=cv2.BORDER_REPLICATE)
         if occlude_frac > 0.0 and occ0 <= i < occ1:
             # Flat gray patch over the top `occlude_frac` of the face box
             # (post-warp, as a real occluder sits between camera and face).

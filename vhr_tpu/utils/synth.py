@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SynthSpec", "SynthVideo", "synthesize",
+__all__ = ["SynthSpec", "SynthVideo", "synthesize", "synthesize_on_device",
            "FaceSpec", "MultiSynthVideo", "synthesize_multi"]
 
 
@@ -103,6 +103,67 @@ def synthesize(spec: SynthSpec) -> SynthVideo:
 
     return SynthVideo(frames=frames, fps=spec.fps, bpm_truth=bpm_t,
                       face_boxes=boxes, pulse=pulse)
+
+
+def synthesize_on_device(spec: SynthSpec):
+    """:func:`synthesize`'s clip model built on the default device, for
+    clips too large to build and upload from the host (minutes of 1080p).
+
+    Supports the static-face subset of :class:`SynthSpec`: no motion,
+    brightness drift, HR drift, flicker or dropouts.  The skin mask, the
+    per-frame skin colour and the pulse are computed on the host exactly as
+    :func:`synthesize` does; sensor noise comes from ``jax.random`` seeded
+    by ``spec.seed`` (so with ``noise_std > 0`` the pixels differ from the
+    host generator's, while the pulse and face are the same; with
+    ``noise_std == 0`` the frames are identical).
+
+    Returns ``(frames, face_box, bpm_truth)``: a ``(T, H, W, 3)`` uint8 BGR
+    device array, the ``(4,)`` int32 ground-truth box and the ``(T,)``
+    instantaneous BPM.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    if (spec.motion_amplitude or spec.drift_amplitude or spec.hr_drift_bpm
+            or spec.dropout_frames or spec.flicker_bpm is not None):
+        raise ValueError("synthesize_on_device builds static-face clips only")
+    T = int(round(spec.duration_s * spec.fps))
+    H, W = spec.height, spec.width
+    t = np.arange(T) / spec.fps
+    bpm_t = np.full(T, float(spec.bpm))
+    pulse = np.sin(2.0 * np.pi * np.cumsum(bpm_t / 60.0) / spec.fps)
+    cx, cy = spec.face_center[0] * W, spec.face_center[1] * H
+    rx, ry = spec.face_radii[0] * W, spec.face_radii[1] * H
+    yy, xx = np.mgrid[0:H, 0:W]
+    mask = (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2) <= 1.0
+    ys, xs = np.nonzero(mask)
+    box = np.asarray([xs.min(), ys.min(), xs.max(), ys.max()], np.int32)
+    skin = np.broadcast_to(np.asarray(spec.skin_bgr, np.float32), (T, 3))
+    skin = skin.copy()
+    skin[:, 1] = (skin[:, 1] + spec.pulse_amplitude * pulse).astype(
+        np.float32)                         # the host generator's rounding
+    bg = np.asarray(spec.background_bgr, np.float32)
+    block = max(d for d in range(1, min(T, 32) + 1) if T % d == 0)
+
+    @jax.jit
+    def build(mask_d, skin_d, key):
+        def one_block(args):
+            colors, k = args                               # (block, 3)
+            img = jnp.where(mask_d[None, :, :, None],
+                            colors[:, None, None, :], jnp.asarray(bg))
+            if spec.noise_std > 0:
+                img = img + spec.noise_std * jax.random.normal(
+                    k, img.shape, jnp.float32)
+            return jnp.clip(img, 0.0, 255.0).astype(jnp.uint8)
+
+        keys = jax.random.split(key, T // block)
+        out = jax.lax.map(one_block, (skin_d.reshape(T // block, block, 3),
+                                      keys))
+        return out.reshape(T, H, W, 3)
+
+    frames = build(jnp.asarray(mask), jnp.asarray(skin),
+                   jax.random.PRNGKey(spec.seed))
+    return frames, box, bpm_t
 
 
 @dataclasses.dataclass(frozen=True)
