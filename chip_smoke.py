@@ -7,7 +7,7 @@ each timed phase produced with the repository's plain references:
 
 1. ``offline``  — ``pipeline.offline.measure_green_avg`` on 960 frames of
    1080p (32 s at 30 fps) with ``PipelineConfig()`` defaults and the skin
-   detector; the ROI reduction runs the Triton-route Pallas kernel.
+   detector.
 2. ``live``     — the production MediaPipe port (bf16 activations) inside
    ``pipeline.live.make_step`` at 720p on the real-face portrait animated
    with a known pulse.
@@ -18,8 +18,8 @@ each timed phase produced with the repository's plain references:
 
 ``--multi`` instead runs the three cross-device paths on a 4-card mesh,
 each against the same work on one card: the stream-sharded farm
-(``parallel.streams``), the slot-sharded serving pool (``BpmServer(mesh=)``)
-and the time-sharded long recording (``parallel.long``).
+(``parallel.streams``), the slot-sharded serving pool (``BpmServer(mesh=)``,
+skin detector) and the time-sharded long recording (``parallel.long``).
 
 ``--rehearse`` runs the same phases on the CPU at toy sizes, to check paths
 and control flow without a card; its output never names a GPU.
@@ -173,26 +173,6 @@ def portrait_clip(sz: Sizes, n: int, bpm: float, seed: int):
     return out, clip.bpm_truth
 
 
-def bgr_to_i420(frame):
-    """BT.601 studio-swing BGR -> planar I420 ``(H*3//2, W)`` (numpy)."""
-    import numpy as np
-
-    f = frame.astype(np.float32)
-    b, g, r = f[..., 0], f[..., 1], f[..., 2]
-    y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
-    u = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
-    v = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
-    H, W = y.shape
-
-    def sub(c):
-        return c.reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3))
-
-    planes = [np.clip(np.rint(p), 0, 255).astype(np.uint8)
-              for p in (y, sub(u), sub(v))]
-    return np.concatenate([planes[0].ravel(), planes[1].ravel(),
-                           planes[2].ravel()]).reshape(H * 3 // 2, W)
-
-
 def np_roi_means(frames, rois):
     """float64 numpy channel means over per-frame boxes (the plain
     reference of ``ops.reduce.roi_channel_means``)."""
@@ -214,11 +194,9 @@ def phase_offline(sz: Sizes, seed: int) -> dict:
     import jax
     import numpy as np
 
-    from vhr_tpu import backend, validation
+    from vhr_tpu import validation
     from vhr_tpu.config import PipelineConfig
     from vhr_tpu.models import skin_detector
-    from vhr_tpu.ops import reduce as vreduce
-    from vhr_tpu.ops.pallas_roi import roi_channel_means_pallas
     from vhr_tpu.pipeline import offline
     from vhr_tpu.utils.synth import SynthSpec, synthesize_on_device
 
@@ -229,12 +207,11 @@ def phase_offline(sz: Sizes, seed: int) -> dict:
     spec = SynthSpec(height=H, width=W, fps=fps, duration_s=T / fps,
                      bpm=bpm, noise_std=1.0, seed=seed)
     frames, _, _ = jax.block_until_ready(synthesize_on_device(spec))
-    route = "triton" if backend.use_triton_roi() else "xla"
 
     t0 = time.perf_counter()
     compiled = offline._extract_signals_jit.lower(
         frames, (), cfg=cfg, det_fn=skin_detector.detect_faces,
-        roi_kernel=backend.use_triton_roi(), detect_every=1).compile()
+        detect_every=1).compile()
     compile_s = time.perf_counter() - t0
     log(f"[offline] extract step memory_analysis: "
         f"{compiled.memory_analysis()}")
@@ -253,19 +230,6 @@ def phase_offline(sz: Sizes, seed: int) -> dict:
     roi_err = float(np.abs(bgr - np_roi_means(host, rois)).max())
     check(roi_err <= TOL_ROI_MEAN, f"ROI means vs float64 numpy: {roi_err}")
 
-    # Kernel vs XLA's masked reduction on the same frames and boxes (in
-    # blocks: the XLA form materializes a float32 copy of its input).
-    kern_err = 0.0
-    for s in range(0, T, 64):
-        fr = frames[s:s + 64]
-        bx = jax.numpy.asarray(rois[s:s + 64])
-        a, _ = roi_channel_means_pallas(fr, bx) if route == "triton" else (
-            vreduce.roi_channel_means(fr, bx))
-        b, _ = vreduce.roi_channel_means(fr, bx)
-        kern_err = max(kern_err, float(np.abs(np.asarray(a)
-                                              - np.asarray(b)).max()))
-    check(kern_err <= TOL_ROI_MEAN, f"ROI kernel vs XLA: {kern_err}")
-
     green = np.asarray(offline._fill_invalid(trace.bgr[:, cfg.channel],
                                              trace.valid))
     ref = validation.cpu_reference_green_avg(
@@ -278,14 +242,13 @@ def phase_offline(sz: Sizes, seed: int) -> dict:
     post[:cfg.acquisition_len(fps) - 1] = False
     truth_err = float(np.abs(bpm_out[post] - bpm).max())
     check(truth_err <= TOL_BPM_TRUTH, f"BPM vs injected truth: {truth_err}")
-    return {"frames": T, "height": H, "width": W, "roi_route": route,
+    return {"frames": T, "height": H, "width": W,
             "compile_s": round(compile_s, 3),
             "first_call_s": round(first_s, 3),
             "steady_s": round(steady_s, 4),
             "steady_frames_per_s": round(T / steady_s, 1),
             "valid_bpm_frames": int(valid.sum()),
             "roi_mean_max_abs_err": roi_err,
-            "roi_kernel_vs_xla_max_abs_err": kern_err,
             "bpm_mae_vs_cpu_reference": mae,
             "bpm_max_err_vs_truth": truth_err,
             "peak_device_bytes": peak_bytes(jax.devices()[0])}
@@ -423,7 +386,7 @@ def phase_serving(sz: Sizes, seed: int) -> dict:
     clips = []
     for k, bpm in enumerate(truths):
         bgr, _ = portrait_clip(sz, sz.serve_frames, bpm, seed + 1 + k)
-        clips.append([bgr_to_i420(f) for f in bgr])
+        clips.append([live.bgr_to_i420_host(f) for f in bgr])
     H, W = sz.live_hw
     pool = serving.BpmServer(cfg, n_slots=sz.serve_slots, detector=det,
                              transfer="i420")
@@ -630,7 +593,6 @@ def phase_multi(sz: Sizes, seed: int, devices) -> dict:
     import numpy as np
 
     from vhr_tpu.config import PipelineConfig
-    from vhr_tpu.models.mediapipe_face import make_mediapipe_detector
     from vhr_tpu.models.skin_detector import SkinDetectorConfig, detect_faces
     from vhr_tpu.ops import roi as vroi
     from vhr_tpu.parallel import mesh as vmesh
@@ -673,18 +635,19 @@ def phase_multi(sz: Sizes, seed: int, devices) -> dict:
     del frames
 
     # 2. slot-sharded serving pool ----------------------------------------
+    # The pool's default skin detector: its boxes are exact integer
+    # functions of the pixels.  (The MediaPipe nets' bf16 convolutions
+    # round differently at another per-card batch size, which can move a
+    # landmark box by a pixel; the served MediaPipe path is the single-card
+    # serving phase's.)
     pcfg = live.LiveConfig(fps=fps, detect_every=8,
                            welch_segment_seconds=sz.live_segment_s)
-    det = make_mediapipe_detector()
     S = sz.serve_slots
-    from vhr_tpu.utils.realface import REAL_FACE_BOX
-
-    base, _ = portrait_clip(sz, 1, 72.0, seed)
-    base = base[0]
-    y0, x0 = portrait_offset(sz)
-    fx1, fy1, fx2, fy2 = (v // sz.live_scale for v in REAL_FACE_BOX)
-    skin = np.zeros(base.shape[:2], bool)          # pulse over the face box
-    skin[y0 + fy1:y0 + fy2, x0 + fx1:x0 + fx2] = True
+    H, W = sz.live_hw
+    plate = SynthSpec(height=H, width=W, fps=fps, duration_s=1.0 / fps,
+                      noise_std=0.0)
+    base = np.asarray(synthesize_on_device(plate)[0][0])
+    skin = np.any(base != np.asarray(plate.background_bgr, np.uint8), -1)
 
     def slot_frame(s, t):
         f = base.copy()
@@ -694,8 +657,8 @@ def phase_multi(sz: Sizes, seed: int, devices) -> dict:
         f[..., 1] = np.clip(np.rint(g), 0, 255).astype(np.uint8)
         return f
 
-    pools = {"one": BpmServer(pcfg, n_slots=S, detector=det),
-             "mesh": BpmServer(pcfg, n_slots=S, detector=det,
+    pools = {"one": BpmServer(pcfg, n_slots=S),
+             "mesh": BpmServer(pcfg, n_slots=S,
                                mesh=vmesh.make_mesh(("slot",),
                                                     devices=devices))}
     got = {k: [] for k in pools}
@@ -739,14 +702,16 @@ def phase_multi(sz: Sizes, seed: int, devices) -> dict:
     frames, _, _ = synthesize_on_device(SynthSpec(
         height=H, width=W, fps=fps, duration_s=T / fps, bpm=66.0,
         noise_std=1.0, seed=seed))
+    # One jitted program per mesh: run op by op, the masked reduction's
+    # float32 copy of 2 minutes of 720p would need ~40 GB on one card.
+    long_fn = jax.jit(measure_green_avg_sharded, static_argnums=(1, 2, 3),
+                      static_argnames=("detector",))
     res = {}
     for name, devs in (("one", devices[:1]), ("mesh", devices)):
         m = vmesh.make_mesh(("time",), devices=devs)
         f = frames if name == "one" else vmesh.shard(frames, m, "time")
-        r, secs_ = timed(measure_green_avg_sharded, f, fps, m, lcfg,
-                         detector=det_small)
-        r, secs_ = timed(measure_green_avg_sharded, f, fps, m, lcfg,
-                         detector=det_small)
+        r, secs_ = timed(long_fn, f, fps, m, lcfg, detector=det_small)
+        r, secs_ = timed(long_fn, f, fps, m, lcfg, detector=det_small)
         res[name] = (jax.device_get(r), secs_)
         del f
     (b1, ok1, g1), (b4, ok4, g4) = res["one"][0], res["mesh"][0]
@@ -819,12 +784,15 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
     from vhr_tpu import backend
 
-    info = backend.device_info()
-    if not args.rehearse and info["platform"] != "gpu":
-        print(f"no GPU: JAX found {info}; refusing to fall back to the CPU",
-              file=sys.stderr)
-        return 2
     need = 4 if args.multi else 1
+    if args.rehearse:
+        info = backend.device_info()
+    else:
+        try:
+            info = backend.require_gpu(need)
+        except RuntimeError as e:
+            print(f"no GPU: {e}", file=sys.stderr)
+            return 2
     if info["count"] < need:
         print(f"need {need} devices, JAX found {info['count']}",
               file=sys.stderr)

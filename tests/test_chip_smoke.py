@@ -30,7 +30,6 @@ def test_rehearse_phase(smoke, phase):
     assert res["frames" if phase != "serving" else "frames_per_client"] > 0
     if phase == "offline":
         assert res["bpm_mae_vs_cpu_reference"] <= smoke.TOL_BPM_MAE
-        assert res["roi_route"] == "xla"           # no kernel on the CPU
     if phase == "live":
         assert res["landmark_rms_vs_oracle_px"] <= smoke.TOL_LANDMARK_RMS_PX
     if phase == "serving":

@@ -338,6 +338,16 @@ def test_live_i420_transfer_matches_bgr(clip):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(6, 10), (48, 64), (720, 1280)])
+def test_bgr_to_i420_host_bitexact_vs_opencv(shape):
+    """The numpy host conversion equals cv2.COLOR_BGR2YUV_I420 exactly."""
+    cv2 = pytest.importorskip("cv2")
+    f = np.random.default_rng(sum(shape)).integers(
+        0, 256, shape + (3,), dtype=np.uint8)
+    np.testing.assert_array_equal(live.bgr_to_i420_host(f),
+                                  cv2.cvtColor(f, cv2.COLOR_BGR2YUV_I420))
+
+
 def test_live_ingest_downsample_bpm_parity():
     """The low-bandwidth ingest mode (host INTER_AREA 4x + i420, 32x fewer
     wire bytes) recovers the same steady BPM as full-resolution frames:

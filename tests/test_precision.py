@@ -159,3 +159,17 @@ def test_projection_contractions():
     valid = jnp.ones((200,), bool)
     _all_highest(_dot_precisions(
         lambda b: projections.omit_pulse(b, valid, 30.0), bgr))
+
+
+@pytest.mark.gpu
+def test_roi_means_exact_on_gpu(gpu_backend):
+    """On the card, where a default-precision float32 contraction may run in
+    TF32, the 1080p full-frame means still match float64 numpy."""
+    from vhr_tpu.ops import reduce as vreduce
+
+    fr = _frame_1080p(6)
+    rois = np.array([[0, 0, 1920, 1080]], np.int32)
+    m, _ = jax.jit(vreduce.roi_channel_means)(
+        jax.device_put(fr, gpu_backend), jax.device_put(rois, gpu_backend))
+    ref = fr[0].reshape(-1, 3).astype(np.float64).mean(0)
+    np.testing.assert_allclose(np.asarray(m)[0], ref, rtol=0, atol=1e-3)

@@ -1,4 +1,4 @@
-"""Tests: ROI geometry, holdover semantics, masked reductions, ROI kernel."""
+"""Tests: ROI geometry, holdover semantics, masked reductions."""
 
 import numpy as np
 import pytest
@@ -7,7 +7,6 @@ import jax.numpy as jnp
 from vhr_tpu.config import ROIConfig
 from vhr_tpu.ops import reduce as vreduce
 from vhr_tpu.ops import roi as vroi
-from vhr_tpu.ops.pallas_roi import roi_channel_means_pallas
 
 RNG = np.random.default_rng(11)
 
@@ -126,7 +125,7 @@ def test_roi_channel_means_empty_roi():
     assert np.all(np.asarray(means) == 0)
 
 
-# --- the Triton-route ROI kernel (interpret mode on the CPU) ---------------
+# --- masked reduction edge cases ----------------------------------------------
 
 def _boxes(kind, T, H, W):
     """Per-frame ROI tables exercising one edge case each."""
@@ -154,28 +153,18 @@ def _boxes(kind, T, H, W):
     raise ValueError(kind)
 
 
-# (T, H, W): small; taller than one row block; W*3 not a power of two and
-# wider than one 512-lane chunk; a single ragged frame.
-_KERNEL_SHAPES = [(4, 40, 56), (3, 130, 96), (5, 37, 201), (1, 9, 600)]
-
-
-@pytest.mark.parametrize("shape", _KERNEL_SHAPES)
+@pytest.mark.parametrize("shape", [(4, 40, 56), (3, 130, 96), (5, 37, 201),
+                                   (1, 9, 600)])
 @pytest.mark.parametrize("kind", ["random", "full", "empty", "degenerate",
                                   "border"])
-def test_pallas_roi_means_matches_xla(shape, kind):
-    """The kernel (interpret mode) equals XLA's masked reduction and float64
-    numpy, counts included: the contract is sum over the in-frame part of
-    the box divided by the (unclipped) box area."""
+def test_roi_channel_means_edge_cases(shape, kind):
+    """The masked reduction vs float64 numpy over odd shapes and box edge
+    cases; its contract: the sum over the in-frame part of the box divided
+    by the (unclipped) box area, 0 for an empty box."""
     T, H, W = shape
     frames = RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8)
     rois = _boxes(kind, T, H, W)
-    m, c = roi_channel_means_pallas(jnp.asarray(frames), jnp.asarray(rois),
-                                    interpret=True)
-    m_ref, c_ref = vreduce.roi_channel_means(jnp.asarray(frames),
-                                             jnp.asarray(rois))
-    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
+    m, c = vreduce.roi_channel_means(jnp.asarray(frames), jnp.asarray(rois))
     for t in range(T):
         x1, y1, x2, y2 = rois[t]
         patch = frames[t, max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)]
@@ -184,47 +173,7 @@ def test_pallas_roi_means_matches_xla(shape, kind):
                / max(area, 1))
         np.testing.assert_allclose(np.asarray(m)[t], ref, rtol=1e-5,
                                    atol=1e-4)
-
-
-def test_pallas_roi_means_flat_layout_and_split():
-    """Pre-flattened ``(T, H, W*C)`` input gives the same answer as 4-D,
-    and operands in the 32-bit-offset window split into frame ranges."""
-    from vhr_tpu.ops import pallas_roi
-
-    T, H, W = 7, 20, 30
-    frames = RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8)
-    rois = _random_rois(T, H, W)
-    m4, c4 = roi_channel_means_pallas(jnp.asarray(frames), jnp.asarray(rois),
-                                      interpret=True)
-    flat = jnp.asarray(frames.reshape(T, H, W * 3))
-    m3, c3 = roi_channel_means_pallas(flat, jnp.asarray(rois), channels=3,
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(m3), np.asarray(m4))
-    old = pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES
-    try:   # pretend 12,600 bytes is inside the window: 3 frames per part
-        pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES = 6000, 20000
-        ms, cs = roi_channel_means_pallas(flat, jnp.asarray(rois),
-                                          interpret=True)
-    finally:
-        pallas_roi._I32_SAFE_BYTES, pallas_roi._I64_OFFSET_BYTES = old
-    np.testing.assert_array_equal(np.asarray(ms), np.asarray(m4))
-    np.testing.assert_array_equal(np.asarray(cs), np.asarray(c4))
-
-
-@pytest.mark.gpu
-def test_pallas_roi_kernel_compiled_on_gpu(gpu_backend):
-    """The kernel compiled for the card (no interpreter) vs XLA's masked
-    reduction on 1080p frames."""
-    import jax
-
-    T, H, W = 8, 1080, 1920
-    frames = jax.device_put(
-        RNG.integers(0, 256, size=(T, H, W, 3), dtype=np.uint8), gpu_backend)
-    rois = jax.device_put(_boxes("border", T, H, W), gpu_backend)
-    m, c = roi_channel_means_pallas(frames, rois)
-    m_ref, c_ref = vreduce.roi_channel_means(frames, rois)
-    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref), atol=1e-3)
-    np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
+        assert float(np.asarray(c)[t]) == area
 
 
 # --- bpp.py statistics -------------------------------------------------------
@@ -305,8 +254,7 @@ def test_roi_from_landmarks_tracks_rotation():
 def test_holdover_attempted_mask_cadence_semantics():
     """Detection-cadence tracking (``attempted``): not-attempted frames
     reuse the box WITHOUT draining the holdover failure budget; the budget
-    counts only attempted-but-failed frames (the fused kernel's
-    ``tracked`` state, now for the XLA detector paths)."""
+    counts only attempted-but-failed frames."""
     import jax.numpy as jnp
     from vhr_tpu.ops import roi as vroi
 

@@ -1,11 +1,12 @@
-"""Stage decomposition of the production MediaPipe face path on TPU.
+"""Stage decomposition of the production MediaPipe face path on a GPU.
 
-VERDICT r3: the path runs ~287 MFLOPs/frame at 7.4k fps = ~1% of bf16
-peak — overhead-bound, not HBM- or MXU-bound.  This script times each
-stage in isolation, scan-amortized per the relay rules (CLAUDE.md):
->=16k frames per timed call, sync by fetching a scalar, median of 3.
+The path runs ~287 MFLOPs/frame.  This script times each stage in
+isolation, scan-amortized (many frames per timed call, sync by fetching a
+scalar, median of 3).  Isolated-stage times overstate the end-to-end cost:
+stages fuse and overlap inside the full program, so trust end-to-end
+deltas; a profiler trace of the full program is the better instrument.
 
-Run: cd /root/repo && python tools/profile_mediapipe.py
+Run from the repository root: python tools/profile_mediapipe.py [stage ...]
 """
 import time
 import numpy as np
@@ -15,12 +16,13 @@ import functools
 
 from vhr_tpu.models import mediapipe_face as mp
 from vhr_tpu.utils.realface import real_face_image
-import cv2
 
 T, H, W = 64, 720, 1280
 
 img = real_face_image()
-frame = cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)
+frame = np.full((H, W, 3), 96, np.uint8)            # portrait on a canvas
+frame[(H - img.shape[0]) // 2:(H + img.shape[0]) // 2,
+      (W - img.shape[1]) // 2:(W + img.shape[1]) // 2] = img
 frames = jnp.asarray(np.broadcast_to(frame[None], (T, H, W, 3)).copy())
 params, det_apply, lm_apply = mp.load_face_models()
 params_bf, det_apply_bf, lm_apply_bf = mp.load_face_models(
@@ -139,7 +141,7 @@ def st_crop(c, i):
     fr = perturb(frames, i)
     cr = mp._crop_faces(fr, rects0, mp._LM_SIZE, mode="axis")
     return c + jnp.sum(cr[0, 0, 128, 128]).astype(jnp.int32)
-timed(st_crop, 64, "axis-MXU crop 256^2", T)
+timed(st_crop, 64, "axis matmul crop 256^2", T)
 
 # 5. landmark conv net
 def st_lmnet(c, i):
@@ -193,11 +195,10 @@ def st_detnet_ba(c, i):
 timed(st_detnet_ba, 256, "det net bf16-act FLAT", T)
 
 
-# --- r4 final configuration -------------------------------------------------
+# --- product configuration ---------------------------------------------------
 # Product default: bf16 activations + bf16 letterbox/crop interchange
-# (io_dtype tag on the applies), measured 17,951 fps at T=256
-# (docs/PERFORMANCE.md roofline table).  Stage sums exceed e2e — stages
-# fuse/overlap inside the e2e program; trust e2e deltas (CLAUDE.md r4).
+# (io_dtype tag on the applies).  Stage sums exceed e2e — stages
+# fuse/overlap inside the e2e program; trust e2e deltas.
 params_r4, det_r4, lm_r4 = mp.load_face_models(
     compute_dtype=jnp.bfloat16, activation_dtype=jnp.bfloat16)
 

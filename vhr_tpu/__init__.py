@@ -1,10 +1,11 @@
-"""vhr_tpu — a TPU-native remote-photoplethysmography (rPPG) framework.
+"""vhr_tpu — a remote-photoplethysmography (rPPG) framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+The package name is historical; it runs wherever JAX does and is measured
+on NVIDIA GPUs (``chip_smoke.py``).  A ground-up JAX/XLA re-design of the capabilities of
 AngaBlue/video-heart-rate: video in, heart-rate (BPM) trace out.  Where the
 reference is a frame-at-a-time Python loop over MediaPipe + OpenCV + scipy,
 this framework treats video as a ``(streams, T, H, W, 3)`` array program:
-batched face localization, a Pallas-fused ROI reduction, scanned temporal
+batched face localization, a masked ROI reduction, scanned temporal
 bandpass filters, and windowed FFT/Welch peak picking — all under ``jit``,
 scaled over device meshes with ``shard_map``.  A serving layer
 (``vhr_tpu.serving``) multiplexes many live TCP camera clients onto one

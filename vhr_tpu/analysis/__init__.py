@@ -8,7 +8,7 @@ plugin contracts (``analysis/README.md``):
 * metric: ``plot(truth, results, x_label, output_dir)``
 
 with a proper registry (``vhr_tpu.analysis.registry``) instead of
-``sys.path`` tricks, pixel-domain degradations running batched on TPU, and
+``sys.path`` tricks, pixel-domain degradations running batched on the device, and
 measurements backed by the jitted pipelines.
 """
 

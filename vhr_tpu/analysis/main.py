@@ -154,4 +154,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from vhr_tpu.backend import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -2,7 +2,7 @@
 
 Contract parity with ``analysis/measurement/green_avg.py`` (30 s rolling
 window, 10 s acquisition, per-frame timestamps, (N, 2) result), executed as
-the batched TPU pipeline (``vhr_tpu.pipeline.offline.measure_green_avg``).
+the batched JAX pipeline (``vhr_tpu.pipeline.offline.measure_green_avg``).
 """
 
 from __future__ import annotations

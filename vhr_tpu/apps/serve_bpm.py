@@ -15,8 +15,8 @@ to client mode, streaming a video file or webcam (resized to the pool's
 geometry, paced at source fps) and printing the returned BPM lines —
 the reference user's whole live workflow, pointed at a shared chip:
 
-    python -m vhr_tpu.apps.serve_bpm --connect tpuhost:7117 --camera 0
-    python -m vhr_tpu.apps.serve_bpm --connect tpuhost:7117 --video f.mp4
+    python -m vhr_tpu.apps.serve_bpm --connect gpuhost:7117 --camera 0
+    python -m vhr_tpu.apps.serve_bpm --connect gpuhost:7117 --video f.mp4
 
 A custom client is ~10 lines (``serving.BpmClient``): send a JSON hello,
 then length-prefixed raw BGR (or planar I420) frames; read JSON lines.
@@ -230,4 +230,6 @@ def _run_client(p, args) -> int:
 
 
 if __name__ == "__main__":
+    from vhr_tpu.backend import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -1,14 +1,12 @@
 """The one place that knows which platform the program runs on.
 
-Everything else in the package is plain JAX and runs wherever JAX does.
-This module answers the few questions whose answer depends on the device:
+Everything else in the package is plain JAX and runs wherever JAX does; no
+code path is chosen by platform.  This module answers the questions whose
+answer depends on the device:
 
-* :func:`use_triton_roi` — whether the offline ROI reduction runs the
-  Triton-route Pallas kernel (``ops.pallas_roi``) or XLA's masked
-  reduction (``ops.reduce``).  The kernel is compiled for NVIDIA GPUs only;
-  every other backend takes the XLA path.
 * :func:`device_info` — the platform, device kind and device count that
-  every measurement names beside its numbers.
+  every measurement names beside its numbers; :func:`require_gpu` refuses
+  a measurement run without a GPU instead of falling back to the CPU.
 * :func:`enable_compile_cache` — where JAX keeps its persistent compile
   cache.  Entry points call it; importing the package does not.
 """
@@ -20,15 +18,10 @@ from typing import Dict, Optional
 
 import jax
 
-__all__ = ["use_triton_roi", "device_info", "enable_compile_cache",
+__all__ = ["device_info", "require_gpu", "enable_compile_cache",
            "CACHE_ENV", "default_cache_dir"]
 
 CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
-
-
-def use_triton_roi() -> bool:
-    """True when the default backend is a GPU (the kernel's only target)."""
-    return jax.default_backend() == "gpu"
 
 
 def device_info() -> Dict[str, object]:
@@ -37,6 +30,16 @@ def device_info() -> Dict[str, object]:
     devs = jax.devices()
     return {"platform": devs[0].platform, "kind": devs[0].device_kind,
             "count": len(devs)}
+
+
+def require_gpu(count: int = 1) -> Dict[str, object]:
+    """:func:`device_info`, or ``RuntimeError`` unless JAX's default
+    backend is a GPU with at least ``count`` devices."""
+    info = device_info()
+    if info["platform"] != "gpu" or info["count"] < count:
+        raise RuntimeError(f"need {count} GPU device(s); JAX found {info} "
+                           f"(no fallback to the CPU)")
+    return info
 
 
 def default_cache_dir() -> str:

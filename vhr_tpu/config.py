@@ -94,8 +94,7 @@ class PipelineConfig:
     channel: int = 1
     # Measurement site inside the face box: "cheek" (the reference's
     # measured ROI, analysis/utils/roi.py:53-59) or "forehead" (the second
-    # ROI rppg_VIDEO.py:102 draws but never measures).  The fused Pallas
-    # kernel bakes cheek geometry; forehead takes the XLA paths.
+    # ROI rppg_VIDEO.py:102 draws but never measures).
     roi_site: str = "cheek"
 
     def window_len(self, fps: float) -> int:

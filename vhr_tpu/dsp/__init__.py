@@ -1,3 +1,3 @@
-"""DSP core: filter design (host numpy) + filtering/spectral/ICA on TPU."""
+"""DSP core: filter design (host numpy) + filtering/spectral/ICA on device."""
 
 from . import design, filters, ica, projections, spectral  # noqa: F401

@@ -5,7 +5,7 @@ The reference delegates filter design to ``scipy.signal`` (``sp.butter`` /
 ``rppg_LIVESTREAM.py:218``).  Design is a tiny one-time host computation, so
 we implement it from first principles here (analog prototype -> band
 transform -> bilinear transform -> second-order sections) and golden-test the
-results against scipy.  Filter *application* runs on TPU (see
+results against scipy.  Filter *application* runs on the device (see
 ``vhr_tpu.dsp.filters``).
 
 All frequencies below are normalized to the Nyquist frequency (as in the

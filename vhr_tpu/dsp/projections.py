@@ -17,7 +17,7 @@ intensity changes (specular/motion), keeping the blood-volume pulse.
   is the green row of the residual after projecting it out.  Data-adaptive
   (no fixed skin-tone assumption), unlike CHROM/POS's fixed axes.
 
-TPU-first implementation: every sliding window is one row of a gathered
+Batched implementation: every sliding window is one row of a gathered
 ``(n_windows, L)`` tensor — all statistics, projections, and the overlap-add
 (a segment-sum scatter) run batched in one XLA program; no Python loops.
 Both accept the pipeline's BGR channel order and a validity mask (invalid

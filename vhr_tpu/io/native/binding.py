@@ -93,7 +93,7 @@ class NativeVideoReader:
     """Background-threaded chunked decode into padded contiguous buffers.
 
     Chunks arrive as ``(n, H, W_pad, 3)`` uint8 with ``W_pad*3`` a multiple
-    of ``pad_row_to`` (Pallas DMA alignment); decode of chunk k+1 overlaps
+    of ``pad_row_to``; decode of chunk k+1 overlaps
     the caller's device work on chunk k.
     """
 
@@ -104,12 +104,11 @@ class NativeVideoReader:
         parallel (one private VideoCapture per worker, seeked to its
         segment), re-serialized in order through a sliding-window buffer —
         SURVEY §7 risk (b): parallel decoder instances so 500 fps of 1080p
-        decode does not starve the chip.  Falls back to one worker when the
+        decode does not starve the device.  Falls back to one worker when the
         container reports no frame count (live streams).
 
         ``fmt="i420"`` stages planar YUV 4:2:0 instead of interleaved BGR —
-        1.5 B/px, so host->device transfer (the e2e bottleneck on
-        network-attached chips) drops 4x; chunks arrive as
+        1.5 B/px, so host->device transfer halves; chunks arrive as
         ``(n, frame_stride)`` uint8 and ``ops.color.i420_to_bgr_flat``
         reconstructs BGR on device bit-exactly vs OpenCV."""
         if fmt not in ("bgr", "i420"):

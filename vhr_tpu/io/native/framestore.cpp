@@ -1,20 +1,18 @@
 // framestore: threaded host-side video decode + staging service.
 //
-// The TPU cannot decode H.264; the host must deliver contiguous
-// (T, H, Wpad, 3) uint8 chunks fast enough to keep the chip busy (the
+// The accelerator does not decode H.264 here; the host must deliver
+// contiguous (T, H, Wpad, 3) uint8 chunks fast enough to keep it busy (the
 // reference decodes synchronously inside its compute loop,
 // rppg_VIDEO.py:356).  This service decodes on a background thread into a
 // bounded ring of pre-allocated staging buffers, so decode overlaps with
-// device compute, and optionally row-pads frames to a 128-lane multiple for
-// the Pallas ROI kernel's DMA alignment.
+// device compute, and optionally row-pads frames to a 128-byte multiple.
 //
 // C ABI (consumed from Python via ctypes — no pybind11 in this image):
 //   vhr_open(path, chunk_frames, pad_row_to, n_decoders, format)
 //       -> handle (>0) or 0; format 0 = interleaved BGR rows (row-padded),
 //          format 1 = planar YUV I420 (1.5 B/px, frame-stride padded) — the
-//          low-bandwidth staging mode: host->device transfer is the e2e
-//          bottleneck on network-attached chips (BENCH_DETAIL decode_e2e),
-//          and I420 carries the same video in 4x less traffic; the device
+//          low-bandwidth staging mode: I420 carries the same video in
+//          half the bytes of BGR; the device
 //          reconstructs BGR bit-exactly vs OpenCV (ops/color.py::i420_to_bgr)
 //   vhr_meta(handle, out[5])                  -> width,height,fps,count,
 //                                                padded_width | frame_stride

@@ -1,9 +1,8 @@
 """Host-side video decode/encode and ground-truth handling.
 
-TPU-native rethink of ``analysis/utils/video_io.py``: video decode cannot run
-on a TPU, so this layer's job is to deliver contiguous ``(T, H, W, 3)`` uint8
-arrays (optionally row-padded for the Pallas ROI kernel's 128-lane DMA
-alignment) and stream them chunk-wise so hour-long recordings never require
+A rethink of ``analysis/utils/video_io.py``: video decode runs on the host,
+so this layer's job is to deliver contiguous ``(T, H, W, 3)`` uint8 arrays
+(optionally row-padded to a 128-pixel multiple) and stream them chunk-wise so hour-long recordings never require
 whole-video RAM (the reference reads everything eagerly,
 ``video_io.py:26-31``).  The multithreaded C++ decode/staging service lives
 in ``vhr_tpu/io/native``; this module is the pure-Python(cv2) implementation

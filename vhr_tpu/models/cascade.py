@@ -20,10 +20,9 @@ held-out hard generator (see tests):
   matrix row that defeats the chroma proposal stage (docs/DETECTION.md).
 
 All crops are fixed-size separable bilinear resamples run as two dense
-interp-matrix MXU products (static shapes, vmappable over time and faces;
-TPU gathers cost ~13 ns/position regardless of formulation, so the matmul
-form is ~25x faster at crop sizes — see ``mediapipe_face._crop_axis_mxu``
-for the measurement); weights ride as `jax.tree_util.Partial` args
+interp-matrix products (static shapes, vmappable over time and faces;
+dense matmuls in place of per-position gathers — see
+``mediapipe_face._crop_axis_mxu``); weights ride as `jax.tree_util.Partial` args
 (traced, not baked literals).
 """
 
@@ -84,7 +83,7 @@ def crop_boxes_bilinear(frames: jnp.ndarray, boxes: jnp.ndarray,
 
     def sample_one(img, xr, yr):
         """Separable bilinear resample of one frame at the (S, S) grid:
-        an x-pass and a y-pass dense matmul on the MXU (bf16 inputs with
+        an x-pass and a y-pass dense matmul (bf16 inputs with
         f32 accumulation bound the error at ~1 u8 LSB: pixel values are
         exact in bf16, interp weights round to 2^-9)."""
         gx = interp_mat(xr, W)                                # (S, W)
@@ -207,9 +206,8 @@ def tiled_landmark_proposals(params, frames: jnp.ndarray,
     ``G*T`` conv batch per step); ``window_batch=None`` (default) auto-
     sizes the group to the ~50 MB crop-stack budget, so short-T calls (the
     live path, detection-cadence offline chunks) put EVERY window in one
-    conv batch and the sequential ``lax.map`` disappears entirely (VERDICT
-    r2 #5: one MXU-batched launch instead of ~Nw sequential landmarker
-    passes), while long whole-clip calls still bound memory by grouping.
+    conv batch and the sequential ``lax.map`` disappears entirely (one
+    batched launch instead of ~Nw sequential landmarker passes), while long whole-clip calls still bound memory by grouping.
 
     Returns ``(boxes (T, Nw, 4) int32, scores (T, Nw) float32)``.
     """

@@ -125,7 +125,7 @@ def load_face_models(task_path: Optional[str] = None, compute_dtype=None,
         compute_dtype=compute_dtype, activation_dtype=activation_dtype)
     # In the bf16-activation mode, letterbox/crops interchange in bf16 too
     # (the net stores bf16 feature maps anyway; the full-res input casts
-    # are the pre-net stages' dominant HBM term — detect_faces_mp /
+    # are the pre-net stages' dominant memory term — detect_faces_mp /
     # face_landmarks read this tag).
     det_apply.io_dtype = activation_dtype
     lm_apply.io_dtype = activation_dtype

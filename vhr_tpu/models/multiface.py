@@ -3,7 +3,7 @@
 The reference configures MediaPipe for two faces (``num_faces=2``,
 ``rppg_LIVESTREAM.py:308``) but only ever processes ``face_landmarks[0]``
 (``rppg_LIVESTREAM.py:339-340``) — true multi-subject monitoring is new
-capability here.  TPU-first design: no sequential connected-component
+capability here.  Array-program design: no sequential connected-component
 labeling; faces separate as *runs of occupied columns* in the skin mask's
 x-projection (side-by-side subjects — the webcam multi-person geometry),
 each run's box recovered by masked min/max reductions.  Everything is

@@ -1,6 +1,6 @@
 """Classical batched face localization via skin-tone segmentation.
 
-TPU-native, weight-free stand-in for MediaPipe's FaceLandmarker bounding box
+A batched, weight-free stand-in for MediaPipe's FaceLandmarker bounding box
 (the reference derives its ROI purely from the landmark cloud's min/max box,
 ``rppg_VIDEO.py:93-98`` — the 478 landmarks are only ever used as a bbox).
 This detector produces that bbox directly from a skin-probability mask:

@@ -25,7 +25,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from .tflite import Operator, Subgraph, Tensor
+from .tflite import Operator, Subgraph
 
 __all__ = ["fold_dequantize", "build_jax", "NumpyInterpreter",
            "SUPPORTED_OPS"]

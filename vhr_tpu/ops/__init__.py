@@ -1,3 +1,3 @@
-"""Batched image/ROI ops: geometry, reductions, Pallas kernels."""
+"""Batched image/ROI ops: geometry, reductions, color, windowed BPM."""
 
 from . import reduce, roi  # noqa: F401

@@ -27,18 +27,17 @@ def i420_to_bgr_flat(chunk: jnp.ndarray, h: int, w: int,
 
     ``chunk`` is ``(n, stride)`` uint8 with the first ``h*w*3//2`` bytes of
     each row holding Y (h, w) then U, V ((h//2, w//2) each) — the layout the
-    native framestore stages in ``fmt="i420"`` mode (1.5 B/px, a 4x cut in
-    host->device traffic vs interleaved BGR; that link is the decode->BPM
-    bottleneck on network-attached chips, BENCH_DETAIL decode_e2e).
+    native framestore stages in ``fmt="i420"`` mode (1.5 B/px, half the
+    host->device bytes of interleaved BGR).
 
     Chroma is replicated over each 2x2 block and the studio-swing BT.601
     matrix applied in int32 fixed point — bit-exact vs OpenCV's
     ``cv2.COLOR_YUV2BGR_I420`` (the decoder the reference's whole pipeline
     rides through, ``analysis/utils/video_io.py:19-31``).
 
-    Returns ``(n, h, w_out*3)`` uint8 (``w_out`` defaults to ``w``; pass the
-    128-lane padded width to feed the Pallas kernels directly — padding
-    columns are zero, matching the BGR staging path's row padding).
+    Returns ``(n, h, w_out*3)`` uint8 (``w_out`` defaults to ``w``; a wider
+    ``w_out`` adds zero columns, matching the BGR staging path's row
+    padding).
     """
     n = chunk.shape[0]
     ysz, csz = h * w, (h // 2) * (w // 2)

@@ -9,12 +9,12 @@ be a polygon of actual mesh vertices — it hugs the face silhouette and
 rides the skin under pose changes, because mesh vertex *indices* have fixed
 semantic positions on every face.
 
-TPU-first formulation (no gathers, no dynamic shapes):
+Array-program formulation (no gathers, no dynamic shapes):
 
 1. the polygon's bounding box is resampled to a fixed ``grid x grid``
-   patch as two separable bilinear interp-matrix products on the MXU
-   (the ``_crop_axis_mxu`` trick — TPU gathers cost ~13 ns per output
-   position however formulated, dense matmuls don't);
+   patch as two separable bilinear interp-matrix products (the
+   ``_crop_axis_mxu`` trick: dense matmuls in place of per-position
+   gathers);
 2. the polygon mask is rasterized on that same sample grid with
    half-plane tests against the polygon's edges — static-shape VPU
    elementwise math, one ``(T, E, G, G)`` cross-product tensor;
@@ -124,7 +124,7 @@ def polygon_channel_means(frames: jnp.ndarray, verts: jnp.ndarray,
     gx = _interp_rows(xs, W)                              # (T, G, W)
     gy = _interp_rows(ys, H)                              # (T, G, H)
     fr = frames.astype(jnp.float32)
-    # Separable resample on the MXU: x-pass then y-pass.
+    # Separable resample as two matmuls: x-pass then y-pass.
     tmp = jnp.einsum("thwc,tgw->thgc", fr, gx)            # (T, H, G, C)
     patch = jnp.einsum("tmh,thgc->tmgc", gy, tmp)         # (T, Gy, Gx, C)
     mask = _convex_mask(verts, xs, ys)                    # (T, Gy, Gx)

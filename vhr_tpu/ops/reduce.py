@@ -5,10 +5,6 @@ Replaces the reference's per-frame ``np.mean(roi[:, :, c])`` spatial pooling
 ``ica.py:48``) with one masked reduction over the whole ``(T, H, W, 3)``
 tensor, and ``bpp.py``'s per-frame entropy/noise/NSR statistics
 (``bpp.py:34-176``) with batched JAX reductions.
-
-The Pallas fast path (DMA only the ROI rows) lives in
-``vhr_tpu.ops.pallas_roi``; this module is the always-correct XLA fallback
-and the golden reference for it.
 """
 
 from __future__ import annotations
@@ -57,7 +53,7 @@ def roi_channel_means(frames: jnp.ndarray, rois: jnp.ndarray
 
     fr = frames.astype(jnp.float32)
     # Reduce W first under the column mask, then H under the row mask; XLA
-    # fuses the mask broadcast into the reductions (single pass over HBM).
+    # fuses the mask broadcast into the reductions (one pass over memory).
     partial = jnp.einsum("thwc,tw->thc", fr, col_m.astype(jnp.float32),
                          precision=_HIGHEST)
     sums = jnp.einsum("thc,th->tc", partial, row_m.astype(jnp.float32),
@@ -74,7 +70,7 @@ def roi_channel_means_multi(frames: jnp.ndarray, rois: jnp.ndarray
 
     A vmap of :func:`roi_channel_means` over the face axis re-reads the
     whole ``(T, H, W, C)`` tensor K times; here the K column masks join the
-    first einsum so HBM traffic stays one frame read regardless of K (the
+    first einsum so memory traffic stays one frame read regardless of K (the
     multi-subject monitoring hot path, offline and live).
 
     Args:

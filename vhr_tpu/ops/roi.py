@@ -1,6 +1,6 @@
 """ROI geometry as pure batched index math.
 
-TPU-native re-design of the reference's per-frame ROI extraction
+A batched re-design of the reference's per-frame ROI extraction
 (``analysis/utils/roi.py:43-59``, ``rppg_VIDEO.py:49-55,91-103``): bounding
 boxes and ROI rectangles are ``(..., 4)`` int32 tensors ``[x1, y1, x2, y2]``
 computed for *all* frames at once; detection dropout becomes a validity mask
@@ -198,9 +198,7 @@ def holdover(box: jnp.ndarray, valid: jnp.ndarray,
         ``detect_every > 1``) reuses the tracked box WITHOUT draining the
         holdover budget: the budget counts consecutive detection
         *failures*, per the reference's rule, and a skipped frame is not a
-        failure (the fused Pallas kernel's ``tracked`` state has the same
-        semantics, ``ops/pallas_fused.py``).  ``None`` = every frame
-        attempted.
+        failure.  ``None`` = every frame attempted.
     Returns:
       :class:`BoxTrack` with holdover applied (use
       :func:`holdover_with_carry` to also get the final scan state).

@@ -22,9 +22,8 @@ was already written against:
 Tested for real (not mocked) in ``tests/test_dcn.py``: two localhost
 processes x 4 virtual CPU devices run ``multistream_green_bpm`` over the
 2x4=8-device cluster mesh and match the single-process reference
-bit-for-bit.  The same code path scales to N TPU hosts by changing only
-``coordinator`` / ``num_processes`` / ``process_id`` (on Cloud TPU pods,
-`jax.distributed.initialize()` with no args autodetects all three).
+bit-for-bit.  The same code path scales to N accelerator hosts by
+changing only ``coordinator`` / ``num_processes`` / ``process_id``.
 
 Reference contrast: the reference has no multi-machine story at all (one
 Python process per video, ``analysis/main.py`` loops serially).
@@ -47,9 +46,9 @@ def init_cluster(coordinator: Optional[str] = None,
                  process_id: Optional[int] = None) -> None:
     """Join (or form) the cluster. Call once, before any backend use.
 
-    On Cloud TPU pods every argument autodetects (pass nothing).  For
-    explicit clusters — including the localhost CPU test rig — pass
-    ``coordinator="host:port"``, ``num_processes``, ``process_id``.
+    Pass ``coordinator="host:port"``, ``num_processes`` and
+    ``process_id`` (the localhost CPU test rig does; on a cluster manager
+    JAX supports, passing nothing lets it autodetect them).
     Idempotent: a second call on an initialized runtime is a no-op.
     """
     if jax._src.distributed.global_state.client is not None:  # already up

@@ -46,28 +46,12 @@ _ASSET_NPY = os.path.join(
 REAL_FACE_BOX = (169, 132, 353, 333)
 
 
-def _matplotlib_asset() -> Optional[str]:
-    try:
-        import matplotlib
-    except Exception:                                    # pragma: no cover
-        return None
-    path = os.path.join(matplotlib.get_data_path(), "sample_data",
-                        "grace_hopper.jpg")
-    return path if os.path.exists(path) else None
-
-
 def real_face_image() -> Optional[np.ndarray]:
-    """The bundled real portrait as a BGR uint8 array, or ``None``.
-
-    Reads the committed ``checkpoints/real_face.npy``; falls back to
-    decoding matplotlib's copy with cv2 when that file is absent."""
-    if os.path.exists(_ASSET_NPY):
-        return np.load(_ASSET_NPY)
-    path = _matplotlib_asset()
-    if path is None:
+    """The bundled real portrait as a BGR uint8 array (the committed
+    ``checkpoints/real_face.npy``), or ``None`` when the file is absent."""
+    if not os.path.exists(_ASSET_NPY):
         return None
-    import cv2
-    return cv2.imread(path)
+    return np.load(_ASSET_NPY)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,9 @@
-"""Fidelity validation: TPU pipeline vs the CPU reference pipeline.
+"""Fidelity validation: the JAX pipeline vs the CPU reference pipeline.
 
 BASELINE.md target: BPM MAE <= 0.5 vs the reference pipeline on identical
 inputs.  MediaPipe isn't installable here, so per SURVEY.md §7's mitigation
 the comparison decouples detector fidelity from DSP fidelity: both pipelines
-consume the *same* per-frame ROI signals (ours batched on TPU, the
+consume the *same* per-frame ROI signals (ours batched on the device, the
 comparator a faithful per-frame numpy/scipy port of
 ``analysis/measurement/green_avg.py`` + ``analysis/utils/estimate_bpm.py``),
 and are additionally scored against the synthetic clips' ground-truth BPM.
@@ -56,7 +56,7 @@ def cpu_reference_green_avg(green: np.ndarray, fps: float,
 
 def validate_green_avg(specs: List[SynthSpec],
                        cfg: PipelineConfig = PipelineConfig()) -> List[dict]:
-    """Per-clip fidelity record: TPU-vs-CPU MAE and truth MAEs."""
+    """Per-clip fidelity record: JAX-vs-CPU MAE and truth MAEs."""
     import jax.numpy as jnp
 
     from .pipeline import offline
@@ -75,8 +75,8 @@ def validate_green_avg(specs: List[SynthSpec],
         rolling = vwin.rolling_bpm_fft(
             jnp.asarray(green), clip.fps, cfg.band,
             cfg.window_len(clip.fps), cfg.acquisition_len(clip.fps))
-        tpu_bpm = np.asarray(rolling.bpm)
-        tpu_valid = np.asarray(rolling.valid)
+        jax_bpm = np.asarray(rolling.bpm)
+        jax_valid = np.asarray(rolling.valid)
 
         # Detector-in-the-loop error: the same rolling estimator fed by the
         # GROUND-TRUTH face boxes' cheek ROI — any difference is detector-
@@ -91,19 +91,19 @@ def validate_green_avg(specs: List[SynthSpec],
 
         ref = cpu_reference_green_avg(green, clip.fps, cfg.window_seconds,
                                       cfg.acquisition_seconds, cfg.band)
-        idx = sorted(set(ref) & set(np.nonzero(tpu_valid)[0].tolist()))
-        vs_ref = float(np.mean([abs(tpu_bpm[i] - ref[i]) for i in idx]))
-        vs_truth_tpu = float(np.mean(
-            [abs(tpu_bpm[i] - clip.bpm_truth[i]) for i in idx]))
+        idx = sorted(set(ref) & set(np.nonzero(jax_valid)[0].tolist()))
+        vs_ref = float(np.mean([abs(jax_bpm[i] - ref[i]) for i in idx]))
+        vs_truth_jax = float(np.mean(
+            [abs(jax_bpm[i] - clip.bpm_truth[i]) for i in idx]))
         vs_truth_ref = float(np.mean(
             [abs(ref[i] - clip.bpm_truth[i]) for i in idx]))
         vs_truth_roi = float(np.mean(
-            [abs(tpu_bpm[i] - truthroi_bpm[i]) for i in idx]))
+            [abs(jax_bpm[i] - truthroi_bpm[i]) for i in idx]))
         rows.append({
             "spec": dataclasses.asdict(spec),
             "frames_compared": len(idx),
-            "mae_tpu_vs_cpu_reference": vs_ref,
-            "mae_tpu_vs_truth": vs_truth_tpu,
+            "mae_jax_vs_cpu_reference": vs_ref,
+            "mae_jax_vs_truth": vs_truth_jax,
             "mae_cpu_reference_vs_truth": vs_truth_ref,
             "mae_detector_vs_truth_roi": vs_truth_roi,
         })
@@ -125,7 +125,7 @@ DEFAULT_SPECS = [
 def main() -> int:
     rows = validate_green_avg(DEFAULT_SPECS)
     lines = [
-        "# VALIDATION — TPU pipeline vs CPU reference pipeline",
+        "# VALIDATION — JAX pipeline vs CPU reference pipeline",
         "",
         "Green-channel (green_avg) pipeline on synthetic clips with known",
         "BPM.  Column semantics (what each number does and does NOT prove):",
@@ -143,7 +143,7 @@ def main() -> int:
         "(BASELINE target: MAE <= 0.5 BPM vs the CPU reference.)",
         "",
         "| clip | frames | MAE vs CPU ref | det-vs-truth-ROI "
-        "| TPU vs truth | CPU ref vs truth |",
+        "| JAX vs truth | CPU ref vs truth |",
         "|---|---|---|---|---|---|",
     ]
     worst = 0.0
@@ -153,11 +153,11 @@ def main() -> int:
                  f"m{s['motion_amplitude']:g} d{s['hr_drift_bpm']:g}")
         lines.append(
             f"| {label} | {r['frames_compared']} | "
-            f"{r['mae_tpu_vs_cpu_reference']:.4f} | "
+            f"{r['mae_jax_vs_cpu_reference']:.4f} | "
             f"{r['mae_detector_vs_truth_roi']:.4f} | "
-            f"{r['mae_tpu_vs_truth']:.2f} | "
+            f"{r['mae_jax_vs_truth']:.2f} | "
             f"{r['mae_cpu_reference_vs_truth']:.2f} |")
-        worst = max(worst, r["mae_tpu_vs_cpu_reference"])
+        worst = max(worst, r["mae_jax_vs_cpu_reference"])
     lines += ["", f"Worst-case MAE vs CPU reference: **{worst:.4f} BPM** "
               f"(target <= 0.5)."]
     # Standing sections (pinned by their named tests, so regeneration
