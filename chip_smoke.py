@@ -69,9 +69,12 @@ TOL_LANDMARK_RMS_PX = 1.5
 #  frames can sit up to detect_every-1 frames away from the single
 #  stream's.  Boxes then come from neighbouring frames (IoU >= 0.9), the
 #  first detect_every frames may differ in validity, and a Welch peak may
-#  move by at most one bin (60/9 BPM at 9 s segments).
+#  move by at most one bin (60/9 BPM at 9 s segments).  This holds while a
+#  slot is active on every tick, so each client keeps SERVE_IN_FLIGHT
+#  frames in flight (a camera streams; it does not wait for answers).
 TOL_SERVE_IOU = 0.9
 TOL_SERVE_BPM = 60.0 / 9.0 + 1e-3
+SERVE_IN_FLIGHT = 4
 #  Cross-device results vs one card: float32 reassociation only
 #  (the __graft_entry__.dryrun_multichip bound); boxes exactly equal.
 TOL_MULTI_RTOL, TOL_MULTI_ATOL = 1e-5, 1e-4
@@ -400,12 +403,20 @@ def phase_serving(sz: Sizes, seed: int) -> dict:
             c = serving.BpmClient("127.0.0.1", port, transfer="i420",
                                   timeout=900.0)
             ready.wait(timeout=600)
-            outs, lat = [], []
-            for f in clips[k]:
-                t0 = time.perf_counter()
-                c.send(f)
+            outs, lat, sent = [], [], []
+            n = len(clips[k])
+
+            def send(i):
+                sent.append(time.perf_counter())
+                c.send(clips[k][i])
+
+            for i in range(min(SERVE_IN_FLIGHT, n)):
+                send(i)
+            for i in range(n):
                 outs.append(c.recv())
-                lat.append(time.perf_counter() - t0)
+                lat.append(time.perf_counter() - sent[i])
+                if i + SERVE_IN_FLIGHT < n:
+                    send(i + SERVE_IN_FLIGHT)
             c.close()
             answers[k], latency[k] = outs, lat
         except Exception as e:                 # noqa: BLE001 -- re-raised
@@ -460,6 +471,7 @@ def phase_serving(sz: Sizes, seed: int) -> dict:
                           for k in range(sz.serve_clients)])
     return {"slots": sz.serve_slots, "clients": sz.serve_clients,
             "frames_per_client": sz.serve_frames, "height": H, "width": W,
+            "frames_in_flight": SERVE_IN_FLIGHT,
             "wall_s": round(wall, 3),
             "first_answer_s": round(max(latency[k][0]
                                         for k in range(sz.serve_clients)),
@@ -702,16 +714,14 @@ def phase_multi(sz: Sizes, seed: int, devices) -> dict:
     frames, _, _ = synthesize_on_device(SynthSpec(
         height=H, width=W, fps=fps, duration_s=T / fps, bpm=66.0,
         noise_std=1.0, seed=seed))
-    # One jitted program per mesh: run op by op, the masked reduction's
-    # float32 copy of 2 minutes of 720p would need ~40 GB on one card.
-    long_fn = jax.jit(measure_green_avg_sharded, static_argnums=(1, 2, 3),
-                      static_argnames=("detector",))
     res = {}
     for name, devs in (("one", devices[:1]), ("mesh", devices)):
         m = vmesh.make_mesh(("time",), devices=devs)
         f = frames if name == "one" else vmesh.shard(frames, m, "time")
-        r, secs_ = timed(long_fn, f, fps, m, lcfg, detector=det_small)
-        r, secs_ = timed(long_fn, f, fps, m, lcfg, detector=det_small)
+        r, secs_ = timed(measure_green_avg_sharded, f, fps, m, lcfg,
+                         detector=det_small)
+        r, secs_ = timed(measure_green_avg_sharded, f, fps, m, lcfg,
+                         detector=det_small)
         res[name] = (jax.device_get(r), secs_)
         del f
     (b1, ok1, g1), (b4, ok4, g4) = res["one"][0], res["mesh"][0]
@@ -755,9 +765,6 @@ def main(argv=None) -> int:
                    help="run the three cross-device paths on 4 cards")
     p.add_argument("--rehearse", action="store_true",
                    help="CPU, toy sizes: check paths and control flow")
-    p.add_argument("--phase", action="append",
-                   choices=("offline", "live", "serving", "evm"),
-                   help="run only these single-card phases (repeatable)")
     args = p.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "vhr_tpu")):
@@ -809,11 +816,10 @@ def main(argv=None) -> int:
             f"{json.dumps(res)}")
         info = dict(info, count=4)
     else:
-        phases = {"offline": phase_offline, "live": phase_live,
-                  "serving": phase_serving, "evm": phase_evm}
-        for name in args.phase or list(phases):
+        for name, phase in (("offline", phase_offline), ("live", phase_live),
+                            ("serving", phase_serving), ("evm", phase_evm)):
             t0 = time.perf_counter()
-            res = phases[name](sz, args.seed)
+            res = phase(sz, args.seed)
             log(f"[{name}] wall_s={time.perf_counter() - t0:.3f} "
                 f"{json.dumps(res)}")
     print(json.dumps({"ok": True, "device": {

@@ -96,5 +96,5 @@ def gpu_backend():
     except RuntimeError:
         devices = []
     if not devices:
-        pytest.skip("needs an NVIDIA GPU (compiled Triton kernel)")
+        pytest.skip("needs an NVIDIA GPU: checks its float32 contractions")
     return devices[0]

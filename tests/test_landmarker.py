@@ -163,7 +163,7 @@ def test_roi_detector_pose_robust_pipeline():
 
 
 def test_crop_boxes_bilinear_matches_gather_reference():
-    """The separable-MXU crop (models/cascade.py crop_boxes_bilinear) must
+    """The separable-matmul crop (models/cascade.py crop_boxes_bilinear) must
     reproduce the bilinear-gather semantics it replaced: coords clamped to
     the frame, floor tap clipped to n-2 (edge rows/columns repeat), for
     interior, edge-spilling, and degenerate boxes."""

@@ -275,7 +275,7 @@ def test_crop_faces_blocked_matches_direct():
 
 
 def test_crop_axis_mxu_matches_ref_rot0():
-    """The separable MXU crop must reproduce the direct bilinear reference
+    """The separable matmul crop must reproduce the direct bilinear reference
     at rot=0 within ~1 u8 LSB (bf16-rounded interp weights), including
     edge-spilling rects that exercise the clamp columns."""
     rng = np.random.default_rng(11)
@@ -299,7 +299,7 @@ def test_crop_axis_mxu_matches_ref_rot0():
 
 def test_crop_faces_axis_blocked_matches_direct():
     """_crop_faces(mode="axis") with T > _CROP_BLOCK must equal the
-    per-frame direct MXU crop."""
+    per-frame direct matmul crop."""
     rng = np.random.default_rng(5)
     T, H, W, K = mpf._CROP_BLOCK + 3, 40, 52, 2
     frames = jnp.asarray(rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8))
@@ -317,7 +317,7 @@ def test_crop_faces_axis_blocked_matches_direct():
 # --- behavior with the production weights ----------------------------------
 
 def test_bf16_compute_mode_agrees_with_f32():
-    """compute_dtype=bf16 (the 2x-MXU mode) must reproduce the f32 result:
+    """compute_dtype=bf16 (the bf16 matmul mode) must reproduce the f32 result:
     same detection box, landmarks within 1 px RMS, score within 1e-2."""
     img = draw_face()
     fr = jnp.asarray(img[None])
@@ -419,7 +419,7 @@ def test_bf16_activation_mode_agrees_with_f32():
 
 
 def test_letterbox_matmul_matches_jax_image_resize():
-    """The separable interp-matrix letterbox (MXU form) must reproduce
+    """The separable interp-matrix letterbox (matmul form) must reproduce
     jax.image.resize('bilinear') — including its antialiasing triangle
     kernel on downscale — to matmul-reassociation tolerance."""
     rng = np.random.default_rng(3)

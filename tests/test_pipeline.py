@@ -240,3 +240,36 @@ def test_roi_site_forehead_pipeline():
     assert ok[W:].all()
     assert abs(float(np.median(bpm[W:])) - 81.0) <= 3.5
 
+
+
+@pytest.mark.parametrize("hw,duration_s,noise_std", [
+    ((48, 64), 2.0, 0.0),
+    ((37, 53), 1.1, 0.0),        # T = 33: blocks of 11 frames, odd sizes
+    ((48, 64), 2.0, 1.5),
+])
+def test_synthesize_on_device_matches_host(hw, duration_s, noise_std):
+    """The on-device generator shares the host generator's face, box and
+    pulse: with no sensor noise its frames are identical; with noise only
+    the noise differs."""
+    from vhr_tpu.utils.synth import synthesize_on_device
+
+    spec = SynthSpec(height=hw[0], width=hw[1], duration_s=duration_s,
+                     bpm=84.0, noise_std=noise_std, seed=5)
+    host = synthesize(spec)
+    frames, box, bpm_t = synthesize_on_device(spec)
+    frames = np.asarray(frames)
+    assert frames.shape == host.frames.shape and frames.dtype == np.uint8
+    np.testing.assert_array_equal(box, host.face_boxes[0])
+    np.testing.assert_array_equal(bpm_t, host.bpm_truth)
+    diff = np.abs(frames.astype(np.int16) - host.frames.astype(np.int16))
+    if noise_std == 0.0:
+        assert diff.max() == 0
+    else:
+        assert diff.mean() < 2.0 * noise_std
+
+
+def test_synthesize_on_device_rejects_moving_faces():
+    from vhr_tpu.utils.synth import synthesize_on_device
+
+    with pytest.raises(ValueError):
+        synthesize_on_device(SynthSpec(duration_s=1.0, motion_amplitude=2.0))

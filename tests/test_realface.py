@@ -137,7 +137,7 @@ def test_distilled_landmarker_closes_real_face_gap(photo):
 
 @pytest.mark.slow
 def test_axis_crop_mode_roll_robustness(photo):
-    """The product crop path (``crop_mode="axis"``, separable MXU crop, no
+    """The product crop path (``crop_mode="axis"``, separable matmul crop, no
     rotation) must agree with MediaPipe-exact rotated sampling on rolled
     real faces: landmark-bbox IoU >= 0.97 at 10 deg and >= 0.95 at 20 deg
     roll — the measured tradeoff that justifies the ~4x faster default

@@ -4,8 +4,8 @@ SURVEY §2C/§5 build decision: batched monitoring scales past one host by
 data-parallel sharding of the *stream* axis, where steady state needs no
 collectives at all — each host's chips own whole subjects, DCN carries
 only input distribution and result gathers.  That makes DCN (slow,
-host-level) the right tier for the stream axis while ICI stays reserved
-for intra-host tensor/time sharding (`parallel/streams.py`,
+host-level) the right tier for the stream axis while the intra-host
+device links stay reserved for tensor/time sharding (`parallel/streams.py`,
 `parallel/time_shard.py`).
 
 This module is the thin, host-count-agnostic layer the rest of the code

@@ -1,8 +1,8 @@
 """Long-recording BPM over a time-sharded signal (sequence parallelism).
 
 Completes the SURVEY.md §5 long-context plan end to end: an hour-scale green
-trace is sharded over the ``time`` mesh axis; each chip receives a
-``window_len - 1`` halo from its left neighbor over ICI (one ``ppermute``)
+trace is sharded over the ``time`` mesh axis; each device receives a
+``window_len - 1`` halo from its left neighbor (one ``ppermute``)
 and computes its frames' steady-state FFT-peak estimates locally — the
 rolling windows become embarrassingly parallel after one neighbor exchange,
 bit-matching the unsharded :func:`vhr_tpu.ops.windows.rolling_bpm_fft`
@@ -11,6 +11,7 @@ steady region.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -84,7 +85,7 @@ def sharded_holdover(box: jnp.ndarray, valid: jnp.ndarray, mesh: Mesh,
     * pass 2 (local, parallel): re-run the exact per-frame scan from the
       recovered carry.
 
-    Two local scans + one tiny ICI all_gather instead of a cross-chip
+    Two local scans + one tiny all_gather instead of a cross-chip
     sequential chain.  Reference rule: ``analysis/utils/roi.py:91-101``;
     the per-frame semantics (including the cadence ``attempted`` rule)
     are :func:`ops.roi.holdover`'s, pinned equal in tests/test_parallel.py.
@@ -282,8 +283,14 @@ def measure_green_avg_sharded(frames: jnp.ndarray, fps: float, mesh: Mesh,
     forward-fill via :func:`sharded_forward_fill`, optional zero-phase
     bandpass via :func:`vhr_tpu.parallel.time_shard.halo_sosfiltfilt`, and
     the windowed FFT-peak estimate via :func:`sharded_rolling_bpm_fft` —
-    every cross-shard dependency is one ICI collective, everything else is
+    every cross-shard dependency is one collective, everything else is
     embarrassingly parallel.
+
+    The whole measure is one jitted program per ``(mesh, cfg, detector,
+    fps, bandpass)``: run op by op, the masked ROI reduction would
+    materialize a float32 copy of the frames (4x the recording's bytes).
+    A ``jax.tree_util.Partial`` detector's weights enter as traced
+    arguments; any other detector callable is a static (hashed) argument.
 
     ``bandpass=False`` is pinned EXACTLY equal to the single-device
     :func:`vhr_tpu.pipeline.offline.measure_green_avg` (estimator="fft");
@@ -294,12 +301,22 @@ def measure_green_avg_sharded(frames: jnp.ndarray, fps: float, mesh: Mesh,
     Returns ``(bpm, valid, green)``, each ``(T,)`` sharded like the input.
     """
     from ..config import PipelineConfig
-    from ..ops import reduce as vreduce
-    from ..ops import roi as vroi
     from ..pipeline.offline import _split_detector
 
-    cfg = cfg or PipelineConfig()
     det_fn, det_args = _split_detector(detector)
+    return _measure_green_avg_sharded_jit(
+        frames, det_args, fps=float(fps), mesh=mesh,
+        cfg=cfg or PipelineConfig(), det_fn=det_fn, bandpass=bool(bandpass),
+        axis_name=axis_name)
+
+
+@functools.partial(jax.jit, static_argnames=("fps", "mesh", "cfg", "det_fn",
+                                             "bandpass", "axis_name"))
+def _measure_green_avg_sharded_jit(frames, det_args, fps, mesh, cfg, det_fn,
+                                   bandpass, axis_name):
+    from ..ops import reduce as vreduce
+    from ..ops import roi as vroi
+
     T, H, W, _ = frames.shape
     spec = P(axis_name)
 

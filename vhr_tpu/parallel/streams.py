@@ -43,11 +43,9 @@ def _single_stream(frames, detector, fps: float, cfg: PipelineConfig,
 
     Detection is frame-local, so a pluggable detector runs once over the
     FLATTENED (S_local*T) frame batch rather than vmapped per stream:
-    measured on the MediaPipe port, the per-stream vmap structure alone
-    cost 3x (2,843 vs 8,781 fps at 64x8 720p) — the flat batch keeps the
-    conv/resize ops in their natural layout.  Tracking/DSP stay
-    per-stream (the holdover scan is the only cross-frame state and never
-    crosses a stream boundary)."""
+    the flat batch keeps the conv/resize ops in their natural layout.
+    Tracking/DSP stay per-stream (the holdover scan is the only
+    cross-frame state and never crosses a stream boundary)."""
     if detector is not None:
         S, T, H, W, _ = frames.shape
         boxes_f, valid_f = detector(frames.reshape(S * T, H, W, 3))
@@ -105,8 +103,17 @@ def multistream_green_bpm(frames: jnp.ndarray, fps: float,
     callable (e.g. :func:`vhr_tpu.models.mediapipe_face
     .make_mediapipe_detector` — the production weights then run
     data-parallel across the mesh, weights replicated per device).
+
+    The farm is one jitted program per ``(mesh, cfg, det, fps)``; the
+    detector's weights (a ``jax.tree_util.Partial``) are traced arguments.
     """
     det = det or skin_detector.SkinDetectorConfig()
+    return _multistream_jit(frames, detector, fps=float(fps), mesh=mesh,
+                            cfg=cfg, det=det)
+
+
+@functools.partial(jax.jit, static_argnames=("fps", "mesh", "cfg", "det"))
+def _multistream_jit(frames, detector, fps, mesh, cfg, det):
     spec = P("stream")
     fn = functools.partial(_single_stream, fps=fps, cfg=cfg, det=det)
     # detector weights (a Partial pytree, e.g. the MediaPipe port) enter as

@@ -5,7 +5,7 @@ The reference's long-context limiter is eager whole-video RAM
 deque.  For hour-scale recordings this module shards the *time* axis across
 chips: zero-phase IIR filtering has a global sequential dependency, but its
 influence decays exponentially, so each shard filters its chunk extended by
-``halo`` neighbor samples (exchanged over ICI with ``ppermute``) and keeps
+``halo`` neighbor samples (exchanged with ``ppermute``) and keeps
 the interior — embarrassingly parallel after one neighbor exchange, with
 error below float tolerance once ``halo`` covers the filter's effective
 impulse response (SURVEY.md §5 long-context plan).
@@ -49,7 +49,7 @@ def halo_sosfiltfilt(sos: np.ndarray, x: jnp.ndarray, mesh: Mesh,
 
     ``x`` is sharded over ``axis_name`` along axis 0.  Each shard gathers
     ``halo`` trailing samples from its left neighbor and ``halo`` leading
-    samples from its right neighbor via ``ppermute`` (one ICI hop each way),
+    samples from its right neighbor via ``ppermute`` (one hop each way),
     zero-phase-filters the extended chunk locally, and returns its interior.
     Interior values match unsharded ``sosfiltfilt`` to float tolerance.
     """

@@ -58,20 +58,41 @@ class SynthVideo:
     pulse: np.ndarray         # (T,) the injected pulse waveform
 
 
+def _pulse(spec: SynthSpec, t: np.ndarray):
+    """Instantaneous BPM and the injected unit pulse at times ``t``."""
+    bpm_t = spec.bpm + spec.hr_drift_bpm * (t / max(t[-1], 1e-9))
+    phase = 2.0 * np.pi * np.cumsum(bpm_t / 60.0) / spec.fps
+    return bpm_t, np.sin(phase)
+
+
+def _skin_colors(spec: SynthSpec, pulse: np.ndarray) -> np.ndarray:
+    """Per-frame float32 BGR skin colour: the green channel pulsates."""
+    skin = np.tile(np.asarray(spec.skin_bgr, np.float32), (len(pulse), 1))
+    skin[:, 1] += spec.pulse_amplitude * pulse
+    return skin
+
+
+def _face_mask(spec: SynthSpec, xx, yy, cx: float, cy: float):
+    """The elliptical face centred at ``(cx, cy)`` -> ``(mask, box)``."""
+    H, W = xx.shape
+    rx, ry = spec.face_radii[0] * W, spec.face_radii[1] * H
+    mask = (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2) <= 1.0
+    ys, xs = np.nonzero(mask)
+    return mask, np.asarray([xs.min(), ys.min(), xs.max(), ys.max()],
+                            np.int32)
+
+
 def synthesize(spec: SynthSpec) -> SynthVideo:
     rng = np.random.default_rng(spec.seed)
     T = int(round(spec.duration_s * spec.fps))
     H, W = spec.height, spec.width
     t = np.arange(T) / spec.fps
 
-    bpm_t = spec.bpm + spec.hr_drift_bpm * (t / max(t[-1], 1e-9))
-    phase = 2.0 * np.pi * np.cumsum(bpm_t / 60.0) / spec.fps
-    pulse = np.sin(phase)
-
+    bpm_t, pulse = _pulse(spec, t)
+    skin = _skin_colors(spec, pulse)
     cx = spec.face_center[0] * W + spec.motion_amplitude * np.sin(
         2.0 * np.pi * spec.motion_hz * t)
-    cy = np.full(T, spec.face_center[1] * H)
-    rx, ry = spec.face_radii[0] * W, spec.face_radii[1] * H
+    cy = spec.face_center[1] * H
 
     yy, xx = np.mgrid[0:H, 0:W]
     frames = np.empty((T, H, W, 3), dtype=np.uint8)
@@ -79,7 +100,6 @@ def synthesize(spec: SynthSpec) -> SynthVideo:
     drift = spec.drift_amplitude * np.sin(2.0 * np.pi * spec.drift_hz * t)
 
     bg = np.array(spec.background_bgr, dtype=np.float32)
-    skin = np.array(spec.skin_bgr, dtype=np.float32)
     dropout = set(spec.dropout_frames)
     flick = np.ones(T)
     if spec.flicker_bpm is not None:
@@ -89,12 +109,8 @@ def synthesize(spec: SynthSpec) -> SynthVideo:
     for i in range(T):
         img = np.broadcast_to(bg, (H, W, 3)).astype(np.float32).copy()
         if i not in dropout:
-            mask = (((xx - cx[i]) / rx) ** 2 + ((yy - cy[i]) / ry) ** 2) <= 1.0
-            color = skin.copy()
-            color[1] += spec.pulse_amplitude * pulse[i]   # green pulsates
-            img[mask] = color
-            ys, xs = np.nonzero(mask)
-            boxes[i] = [xs.min(), ys.min(), xs.max(), ys.max()]
+            mask, boxes[i] = _face_mask(spec, xx, yy, cx[i], cy)
+            img[mask] = skin[i]
         img *= flick[i]
         img += drift[i]
         if spec.noise_std > 0:
@@ -110,11 +126,11 @@ def synthesize_on_device(spec: SynthSpec):
     clips too large to build and upload from the host (minutes of 1080p).
 
     Supports the static-face subset of :class:`SynthSpec`: no motion,
-    brightness drift, HR drift, flicker or dropouts.  The skin mask, the
-    per-frame skin colour and the pulse are computed on the host exactly as
-    :func:`synthesize` does; sensor noise comes from ``jax.random`` seeded
-    by ``spec.seed`` (so with ``noise_std > 0`` the pixels differ from the
-    host generator's, while the pulse and face are the same; with
+    brightness drift, HR drift, flicker or dropouts.  The face mask, its
+    box, the per-frame skin colour and the pulse come from the same host
+    helpers as :func:`synthesize`; sensor noise comes from ``jax.random``
+    seeded by ``spec.seed`` (so with ``noise_std > 0`` the pixels differ
+    from the host generator's, while the pulse and face are the same; with
     ``noise_std == 0`` the frames are identical).
 
     Returns ``(frames, face_box, bpm_truth)``: a ``(T, H, W, 3)`` uint8 BGR
@@ -129,19 +145,11 @@ def synthesize_on_device(spec: SynthSpec):
         raise ValueError("synthesize_on_device builds static-face clips only")
     T = int(round(spec.duration_s * spec.fps))
     H, W = spec.height, spec.width
-    t = np.arange(T) / spec.fps
-    bpm_t = np.full(T, float(spec.bpm))
-    pulse = np.sin(2.0 * np.pi * np.cumsum(bpm_t / 60.0) / spec.fps)
-    cx, cy = spec.face_center[0] * W, spec.face_center[1] * H
-    rx, ry = spec.face_radii[0] * W, spec.face_radii[1] * H
+    bpm_t, pulse = _pulse(spec, np.arange(T) / spec.fps)
+    skin = _skin_colors(spec, pulse)
     yy, xx = np.mgrid[0:H, 0:W]
-    mask = (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2) <= 1.0
-    ys, xs = np.nonzero(mask)
-    box = np.asarray([xs.min(), ys.min(), xs.max(), ys.max()], np.int32)
-    skin = np.broadcast_to(np.asarray(spec.skin_bgr, np.float32), (T, 3))
-    skin = skin.copy()
-    skin[:, 1] = (skin[:, 1] + spec.pulse_amplitude * pulse).astype(
-        np.float32)                         # the host generator's rounding
+    mask, box = _face_mask(spec, xx, yy, spec.face_center[0] * W,
+                           spec.face_center[1] * H)
     bg = np.asarray(spec.background_bgr, np.float32)
     block = max(d for d in range(1, min(T, 32) + 1) if T % d == 0)
 
